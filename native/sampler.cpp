@@ -1,6 +1,6 @@
 // Native host sampler — the C++ performance path for negative sampling.
 //
-// TPU-era equivalent of the reference's native core (SURVEY.md §2.2):
+// This codebase's equivalent of the reference's native core (SURVEY.md §2.2):
 //   base/Base.cpp::sampling  — pthread fan-out, disjoint output slices
 //   base/Corrupt.h           — filtered corruption via the complement
 //                              "offset trick" (binary search, no rejection)

@@ -1,4 +1,4 @@
-"""openkeonspark_tpu — TPU-native knowledge-graph embedding framework.
+"""openkeonspark_tpu — knowledge-graph embedding framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-architecture of the capability surface of
 OpenKEonSpark (translational KG embedding training on Spark + TF parameter

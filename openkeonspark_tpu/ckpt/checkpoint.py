@@ -7,30 +7,59 @@ auto-restored the latest checkpoint, incremental mode warm-started batch
 *i* from batch *i−1*'s directory, and ``Config.save_parameters`` exported
 the tables to ``embedding.vec.json`` (reconstructed ``Config.py:~200–260``).
 
-TPU-native shape: orbax `StandardCheckpointer` over the params/opt-state
-pytree (sharded arrays checkpoint natively on multi-host), a tiny manifest
-for step/metadata, and the same ``embedding.vec.json`` export format so
-downstream consumers of the reference's files can switch without changes."""
+Shape here: one ``state.npz`` per ``step_N/`` directory holding the
+params/opt-state pytree and the global step, written under a temporary
+name and renamed into place, a tiny manifest for step/metadata, and the
+same ``embedding.vec.json`` export format so downstream consumers of the
+reference's files can switch without changes."""
 
 from __future__ import annotations
 
 import json
 import os
 import re
+import shutil
 from typing import Dict, Optional, Tuple
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from openkeonspark_tpu.config import Config
 from openkeonspark_tpu.models.base import strip_padding
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
+_STATE_FILE = "state.npz"
 
 
-def _ocp():
-    import orbax.checkpoint as ocp
-    return ocp
+def _flatten(tree: dict, prefix: str = "") -> Dict[str, object]:
+    """Nested dict → {"a/b/c": leaf} (table names hold no '/')."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _host_array(x) -> np.ndarray:
+    """A host copy of ``x``; arrays sharded across processes are gathered
+    first, so every process holds the whole value."""
+    if isinstance(x, jax.Array) and not x.is_fully_addressable:
+        from jax.experimental import multihost_utils
+        return np.asarray(multihost_utils.process_allgather(x, tiled=True))
+    return np.asarray(x)
+
+
+def _place(template, arr: np.ndarray):
+    """Put ``arr`` where the template leaf lives (its sharding, which may
+    span devices of several processes); non-array templates → default
+    device."""
+    if isinstance(template, jax.Array):
+        return jax.make_array_from_callback(arr.shape, template.sharding,
+                                            lambda idx: arr[idx])
+    return jnp.asarray(arr)
 
 
 class CheckpointManager:
@@ -41,71 +70,65 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.keep = keep
         os.makedirs(self.directory, exist_ok=True)
-        self._ckptr = _ocp().StandardCheckpointer()
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}")
 
-    def save(self, step: int, state, extra: Optional[dict] = None,
-             wait: bool = True):
+    def save(self, step: int, state, extra: Optional[dict] = None):
         """Save the TrainState pytree (params + opt_state + step) and a
-        JSON manifest with ``extra`` metadata (e.g. best valid accuracy)."""
+        JSON manifest with ``extra`` metadata (e.g. best valid accuracy).
+        Every process takes part (sharded arrays are gathered); process 0
+        writes."""
         path = self._path(int(step))
         tree = {"params": state.params, "opt_state": state.opt_state,
                 "step": state.step}
-        self._ckptr.save(path, tree, force=True)
-        if wait:
-            self._ckptr.wait_until_finished()
-        with open(os.path.join(self.directory, f"manifest_{int(step)}.json"),
-                  "w") as f:
-            json.dump({"step": int(step), **(extra or {})}, f)
-        self._gc()
+        arrays = {k: _host_array(v) for k, v in _flatten(tree).items()}
+        if jax.process_index() == 0:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            np.savez(os.path.join(tmp, _STATE_FILE), **arrays)
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+            with open(os.path.join(self.directory,
+                                   f"manifest_{int(step)}.json"), "w") as f:
+                json.dump({"step": int(step), **(extra or {})}, f)
+            self._gc()
+        if jax.process_count() > 1:
+            from jax.experimental import multihost_utils
+            multihost_utils.sync_global_devices(f"ckpt_save_{int(step)}")
 
     def restore(self, state, step: Optional[int] = None,
                 logical_rows: Optional[Dict[str, int]] = None):
-        """Restore into the (abstract or concrete) TrainState template;
-        returns (state, manifest dict).
+        """Restore into the TrainState template; returns (state, manifest
+        dict). Arrays land on the template's devices and shardings.
 
-        ``logical_rows`` (table name → logical row count, from
-        ``model.tables(cfg, n_ent, n_rel)``) guards the padding-mismatch
-        fallback: a stored table whose leading dim does not cover the
-        template's logical rows is a *vocabulary* mismatch (e.g. a newer
-        dataset with more entities) and re-raises instead of silently
-        zero-filling the extra rows (r4 advisor) — vocabulary growth goes
-        through :func:`warm_start_from`, which copies old rows and keeps
-        the fresh init for new ones."""
+        A stored table whose row count differs from the template's was
+        written with a different grid padding (e.g. trained on an
+        8-device mesh, restored for single-device eval). Logical rows are
+        always a common prefix — padding rows are scatter sinks stripped
+        at use — so the stored rows are prefix-copied into the template's
+        shape. ``logical_rows`` (table name → logical row count, from
+        ``model.tables(cfg, n_ent, n_rel)``) guards that copy: a stored
+        table that does not cover the template's logical rows is a
+        *vocabulary* mismatch (e.g. a newer dataset with more entities)
+        and raises instead of silently zero-filling the extra rows —
+        vocabulary growth goes through :func:`warm_start_from`, which
+        copies old rows and keeps the fresh init for new ones."""
         if step is None:
             step = latest_step(self.directory)
             if step is None:
                 raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        path = self._path(step)
         tree = {"params": state.params, "opt_state": state.opt_state,
                 "step": state.step}
-        try:
-            restored = self._ckptr.restore(path, tree)
-        except ValueError:
-            # physical row-count mismatch: the checkpoint was written with
-            # a different grid padding (e.g. trained on an 8-device mesh,
-            # restored for single-device eval). Logical rows are always a
-            # common prefix — padding rows are scatter sinks stripped at
-            # use — so restore at the STORED shapes and prefix-copy into
-            # the requested layout. Abstract ShapeDtypeStruct templates
-            # (from the checkpoint metadata) make orbax place the arrays
-            # on the CURRENT devices — a bare template-free restore would
-            # try to rebuild the saving run's device mesh and fail when
-            # the topology differs (8-device train → 1-device eval).
-            stored = self._ckptr.metadata(path).item_metadata.tree
-            shard = jax.sharding.SingleDeviceSharding(jax.devices()[0])
-            tmpl = jax.tree_util.tree_map(
-                lambda m: jax.ShapeDtypeStruct(tuple(m.shape), m.dtype,
-                                               sharding=shard), stored)
-            raw = self._ckptr.restore(path, tmpl)
+        with np.load(os.path.join(self._path(step), _STATE_FILE)) as z:
+            stored = {k: z[k] for k in z.files}
 
-            def fit(tmpl_, arr, name=None):
-                arr = np.asarray(arr)
-                shape = getattr(tmpl_, "shape", arr.shape)
-                if tuple(shape) == arr.shape or arr.ndim == 0:
-                    return arr
+        def fit(key, tmpl):
+            arr = stored[key]
+            name = key.rsplit("/", 1)[-1]
+            shape = tuple(np.shape(tmpl))
+            if shape != arr.shape and arr.ndim:
                 need = (logical_rows or {}).get(name)
                 if need is not None and arr.shape[0] < need:
                     raise ValueError(
@@ -114,23 +137,23 @@ class CheckpointManager:
                         f"— a vocabulary mismatch, not grid padding; use "
                         f"warm_start_from for incremental vocab growth")
                 if need is None and shape[0] > arr.shape[0]:
-                    print(f"[ckpt] note: extending {name or 'array'} "
+                    print(f"[ckpt] note: extending {name} "
                           f"{arr.shape[0]} -> {shape[0]} rows (assumed "
                           f"grid-padding difference; extra rows zero)")
                 out = np.zeros(shape, arr.dtype)
                 n = min(shape[0], arr.shape[0])
                 out[:n] = arr[:n]
-                return out
+                arr = out
+            return _place(tmpl, arr)
 
-            restored = {
-                "params": {k: fit(tree["params"][k], raw["params"][k], k)
-                           for k in tree["params"]},
-                "opt_state": {s: {k: fit(tree["opt_state"][s][k],
-                                         raw["opt_state"][s][k], k)
-                                  for k in tree["opt_state"][s]}
-                              for s in tree["opt_state"]},
-                "step": fit(tree["step"], raw["step"]),
-            }
+        restored = {
+            "params": {k: fit(f"params/{k}", v)
+                       for k, v in tree["params"].items()},
+            "opt_state": {s: {k: fit(f"opt_state/{s}/{k}", v)
+                              for k, v in tree["opt_state"][s].items()}
+                          for s in tree["opt_state"]},
+            "step": fit("step", tree["step"]),
+        }
         manifest_path = os.path.join(self.directory, f"manifest_{step}.json")
         manifest = {}
         if os.path.exists(manifest_path):
@@ -144,7 +167,6 @@ class CheckpointManager:
     def _gc(self):
         steps = sorted(all_steps(self.directory))
         for s in steps[:-self.keep] if self.keep else []:
-            import shutil
             shutil.rmtree(self._path(s), ignore_errors=True)
             m = os.path.join(self.directory, f"manifest_{s}.json")
             if os.path.exists(m):

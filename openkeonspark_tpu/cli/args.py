@@ -49,7 +49,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--negative_rel", type=int, default=0)
     p.add_argument("--bern", type=int, default=1, choices=[0, 1])
     p.add_argument("--sampler", default="device", choices=["device", "host"],
-                   help="device = on-TPU sampling fused into the step; "
+                   help="device = on-accelerator sampling fused into the step; "
                         "host = C++ threaded sampler + prefetch pipeline")
     p.add_argument("--work_threads", type=int, default=2,
                    help="host sampler threads (reference flag name)")
@@ -60,8 +60,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="epochs between early-stop validation checks (0=off)")
     p.add_argument("--early_stop_patience", type=int, default=5)
     p.add_argument("--early_stop_min_delta", type=float, default=0.0)
-    p.add_argument("--eval_chunk", type=int, default=None,
-                   help="test triples per ranking chunk (default: platform)")
+    p.add_argument("--eval_chunk", type=int, default=256,
+                   help="test triples per ranking chunk")
     p.add_argument("--eval_block", type=int, default=1024)
     p.add_argument("--eval_dtype", default="float32")
     p.add_argument("--type_constrain", action="store_true",

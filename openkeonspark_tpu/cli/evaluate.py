@@ -23,6 +23,8 @@ from openkeonspark_tpu.train.step import init_state
 
 
 def main(argv=None):
+    from openkeonspark_tpu.runtime import enable_compile_cache
+    enable_compile_cache()
     p = build_parser(__doc__)
     p.add_argument("--checkpoint", required=True,
                    help="checkpoint dir written by cli.train")

@@ -2,12 +2,18 @@
 
 The reference submits ``main_spark.py`` to a Spark cluster;
 TensorFlowOnSpark reserves executors, assigns ps/worker/chief roles, and
-exchanges the cluster spec (SURVEY.md §2.4). On TPU pods none of that
-machinery exists or is needed: run ONE copy of this script per host with
-the same flags plus per-host ``--process_id``; ``jax.distributed`` forms
-the process group over the coordinator, ``jax.devices()`` becomes the
-global chip list, and the ('data','model') mesh spans the pod slice. The
-synchronous SPMD step replaces the async parameter-server loop.
+exchanges the cluster spec (SURVEY.md §2.4). None of that machinery is
+needed here: run ONE copy of this script per host with the same flags
+plus per-host ``--process_id``; ``jax.distributed`` forms the process
+group over the coordinator, ``jax.devices()`` becomes the global device
+list, and the ('data','model') mesh spans every device. The synchronous
+SPMD step replaces the async parameter-server loop.
+
+One process drives all the devices of its host. On a host with four
+GPUs that is one process for the four cards, never one per card: a JAX
+process reserves most of each card's memory when it first uses it, so a
+second process on the same cards fails for want of memory. A single
+host needs no launcher at all (``cli/train.py`` with the mesh flags).
 
     # host 0 (also the coordinator)
     python -m openkeonspark_tpu.cli.launch --coordinator 10.0.0.1:1234 \
@@ -33,6 +39,8 @@ from openkeonspark_tpu.cli.args import build_parser, config_from_args
 
 
 def main(argv=None):
+    from openkeonspark_tpu.runtime import enable_compile_cache
+    enable_compile_cache()
     args = build_parser(__doc__).parse_args(argv)
     cfg = config_from_args(args)
 

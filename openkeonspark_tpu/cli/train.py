@@ -183,6 +183,7 @@ def run(cfg: Config, echo=print) -> dict:
             "filtered_mrr": res.filt_avg.mrr,
             "filtered_hits10": res.filt_avg.hits10,
             "raw_mrr": res.raw_avg.mrr,
+            "ranks": res.ranks,
         }
         if cfg.type_constrain:
             from openkeonspark_tpu.data.type_constrain import maybe_load
@@ -210,6 +211,8 @@ def run(cfg: Config, echo=print) -> dict:
 
 
 def main(argv=None):
+    from openkeonspark_tpu.runtime import enable_compile_cache
+    enable_compile_cache()
     args = build_parser(__doc__).parse_args(argv)
     cfg = config_from_args(args)
     # export_format isn't part of Config; stash it on the instance dict

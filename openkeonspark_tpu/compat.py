@@ -16,7 +16,7 @@ The reference's user surface is an imperative ``Config`` object
     con.predict_tail_entity(h, r, k)
     con.save_parameters("embedding.vec.json")
 
-This module reproduces that surface 1:1 on top of the TPU-native stack so
+This module reproduces that surface 1:1 on top of this JAX stack so
 reference scripts port by changing one import. New code should prefer the
 functional API (``openkeonspark_tpu.config.Config`` + ``train.loop.train``
 + ``eval.*``); this facade exists for drop-in migration parity.

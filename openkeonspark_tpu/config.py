@@ -51,7 +51,7 @@ class Config:
     negative_ent: int = 1            # corrupted-entity negatives per positive
     negative_rel: int = 0            # corrupted-relation negatives per positive
     bern: bool = True                # Bernoulli head/tail corruption choice
-    sampler: str = "device"          # device (on-TPU, default) | host (C++ ctypes)
+    sampler: str = "device"          # device (on-accelerator, default) | host (C++ ctypes)
     work_threads: int = 2            # host sampler threads (reference name)
 
     # --- data / paths --------------------------------------------------
@@ -66,10 +66,9 @@ class Config:
     valid_every: int = 0             # epochs between validation accuracy checks (0=off)
     early_stop_patience: int = 5     # checks without improvement before stopping
     early_stop_min_delta: float = 0.0
-    eval_chunk: Optional[int] = None  # test triples ranked per scanned
-    #   chunk; None = platform/model default (TPU: 256 for the generic/
-    #   kernel eval paths, 512 for the relation-grouped transh/transr;
-    #   256 elsewhere — r4 pinned-protocol sweeps, BASELINE.md §5)
+    eval_chunk: int = 256            # test triples ranked per scanned
+    #   chunk (the relation-grouped transr/transh route caps it at 64);
+    #   not tuned on the GPU
     eval_block: int = 1024           # candidate entities per scoring block
     eval_group_elems: int = 1 << 25  # known-matrix elements per dispatch
     #   group (queries × k_max); bounds host/device memory for huge splits
@@ -79,19 +78,11 @@ class Config:
     seed: int = 0
     steps_per_scan: Optional[int] = None  # train steps fused into one
     #   lax.scan host call; None = adaptive (see scan_group_size): small
-    #   batches fuse deeper so per-dispatch latency (severe through
-    #   remote-attached TPUs) amortizes — config #1 (B=400) measured
-    #   0.69M t/s at 50 and >5M at 800
+    #   batches fuse deeper so per-dispatch latency amortizes
     dtype: str = "float32"           # table dtype
     eval_dtype: str = "float32"      # scoring dtype at eval ("bfloat16" for speed)
-    use_pallas_eval: bool = True     # blocked Pallas rank kernel when available
-    grouped_transr: bool = True      # TransR training via the relation-
-    #   grouped projection kernel (ops/pallas_grouped.py): sort the batch
-    #   by relation, stream each projection matrix once, dense MXU dM —
-    #   replaces the per-row [dₑ×dᵣ] gather/einsum/wide-scatter path
-    #   (2.2× measured: 15.75→7.19 ms/step at config #4, BASELINE.md).
-    #   TPU-only; single-device step with entity negatives (falls back
-    #   otherwise)
+    use_pallas_eval: bool = True     # fused Pallas rank kernel on the GPU
+    #   (ops/pallas_rank.py); False runs the plain XLA sweep everywhere
 
     # --- parallelism ----------------------------------------------------
     mesh_shape: Tuple[int, int] = (1, 1)   # (data, model) mesh axes
@@ -195,21 +186,6 @@ class Config:
         if self.steps_per_scan is not None:
             return max(1, self.steps_per_scan)
         return max(50, -(-131072 // max(1, batch_size)))
-
-    @property
-    def eval_chunk_size(self) -> int:
-        """Platform- and model-resolved eval chunk (VERDICT.md r1 weak #5:
-        the fixed CPU-test-shaped default made TPU eval silently slow).
-        r4 pinned-protocol sweep: the generic/kernel paths (transe,
-        transd, bilinears) peak at 256 on TPU (TransE 61.9k vs 50.9k at
-        512), the relation-grouped paths (transh, transr) at 512 (TransH
-        40.6k vs 37.4k at 256) — BASELINE.md §5."""
-        if self.eval_chunk is not None:
-            return self.eval_chunk
-        import jax
-        if jax.default_backend() != "tpu":
-            return 256
-        return 512 if self.model in ("transh", "transr") else 256
 
     @property
     def d_ent(self) -> int:

@@ -10,8 +10,9 @@ Here each sorted view becomes a :class:`GroupIndex`: triples grouped by an
 anchor *pair* key with the grouped value column stored sorted **and
 deduplicated**, plus the precomputed ``adj[i] = value[i] - rank_in_group(i)``
 array that makes exact complement sampling a single ``upper_bound``
-(``Corrupt.h:~40–90``'s offset trick, vectorized for TPU in
-``sampling/device.py``). All arrays are flat int32 so they can live in HBM
+(``Corrupt.h:~40–90``'s offset trick, vectorized on the device in
+``sampling/device.py``). All arrays are flat int32 so they can live in
+device memory
 and be consumed by jitted code without host round trips.
 """
 

@@ -11,7 +11,7 @@ negatives. The same valid-accuracy number is the reference's early-stopping
 signal during distributed training (SURVEY.md §3.4) — and is ours too
 (``train/loop.py``).
 
-TPU-native shape: negatives are drawn by the on-device sampler's filtered
+Shape here: negatives are drawn by the on-device sampler's filtered
 corruption machinery (same complement trick as training), scoring is one
 batched device call per split, and the threshold sweep — O(n_valid log
 n_valid) scalar work — runs on host, exactly as the reference kept it on

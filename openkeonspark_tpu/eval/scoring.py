@@ -5,9 +5,9 @@ This is the compute core of link prediction (reference ``Test.h``'s
 ``getHeadBatch``/``getTailBatch`` + ``Config.test``'s ``sess.run(predict)``
 over N_entity candidates, SURVEY.md §3.3). The reference materializes
 N_entity candidate triples per test triple and scores them one test triple
-at a time; here scoring is [C queries × E candidates] tiles so XLA can keep
-the VPU/MXU busy, and the caller ``lax.scan``s over entity blocks so the
-[C, E, d] broadcast intermediates stay small and on-chip.
+at a time; here scoring is [C queries × E candidates] tiles, and the
+caller ``lax.scan``s over entity blocks so the [C, E, d] broadcast
+intermediates stay small.
 
 Two-stage contract (so the multi-device evaluator in ``parallel/eval.py``
 can score *local shards* of the candidate axis):
@@ -20,7 +20,12 @@ can score *local shards* of the candidate axis):
 
 ``candidate_scores`` composes the two for the single-device path.
 Scores follow the lower-is-better convention; p=2 paths use matmul
-identities so the C×E work rides the MXU."""
+identities so the C×E work becomes one matrix product.
+
+Every matrix product here runs at ``Precision.HIGHEST``: a default
+float32 product may run in TF32 on the GPU (about three decimal
+digits), while the known-true filter scores its ids through the
+elementwise triple path — the mismatch would flip filtered ranks."""
 
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import jax.numpy as jnp
 
 from openkeonspark_tpu.config import Config
 from openkeonspark_tpu.models.base import pnorm
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # tables whose rows form the candidate axis, per model
 CANDIDATE_TABLES = {
@@ -84,16 +91,18 @@ def build_queries(model_name: str, params: Dict[str, jax.Array],
                  ).reshape(-1, de, dr)
         if replace == "tail":
             ph = jnp.einsum("cd,cdk->ck", take(E, h), m,
-                            preferred_element_type=jnp.float32).astype(dt)
+                            preferred_element_type=jnp.float32,
+                            precision=_HIGHEST).astype(dt)
             q = ph + take(R, r)
         else:
             pt = jnp.einsum("cd,cdk->ck", take(E, t), m,
-                            preferred_element_type=jnp.float32).astype(dt)
+                            preferred_element_type=jnp.float32,
+                            precision=_HIGHEST).astype(dt)
             q = take(R, r) - pt
         return {"q": q, "m": m}
     if model_name == "distmult":
         # score = −Σ h·r·t: both directions reduce to q·e_c with
-        # q = (anchor ⊙ r) — the sweep is one MXU matmul
+        # q = (anchor ⊙ r) — the sweep is one matrix product
         if replace == "tail":
             return {"q": take(E, h) * take(R, r)}
         return {"q": take(E, t) * take(R, r)}
@@ -165,24 +174,25 @@ def score_block(model_name: str, q: Dict[str, jax.Array],
 
     if model_name == "transe":
         if p == 2:
-            # ‖q + s·ce‖² = ‖q‖² + 2s(q·ce) + ‖ce‖² on the MXU
+            # ‖q + s·ce‖² = ‖q‖² + 2s(q·ce) + ‖ce‖², one matrix product
             qq = jnp.sum(q["q"] * q["q"], -1, keepdims=True)
             cc = jnp.sum(ce * ce, -1)[None, :]
-            cross = jnp.dot(q["q"], ce.T,
-                            preferred_element_type=jnp.float32).astype(dt)
+            cross = jnp.dot(q["q"], ce.T, preferred_element_type=jnp.float32,
+                            precision=_HIGHEST).astype(dt)
             return qq + 2.0 * sign * cross + cc
         return pnorm(q["q"][:, None, :] + sign * ce[None, :, :], 1)
 
     if model_name == "transh":
         w = q["w"]
-        dots = jnp.dot(w, ce.T, preferred_element_type=jnp.float32
-                       ).astype(dt)                       # [C, E]
+        dots = jnp.dot(w, ce.T, preferred_element_type=jnp.float32,
+                       precision=_HIGHEST).astype(dt)     # [C, E]
         proj = sign * ce[None, :, :] - sign * dots[:, :, None] * w[:, None, :]
         return pnorm(q["q"][:, None, :] + proj, p)
 
     if model_name == "transr":
         pce = jnp.einsum("ed,cdk->cek", ce, q["m"],
-                         preferred_element_type=jnp.float32).astype(dt)
+                         preferred_element_type=jnp.float32,
+                         precision=_HIGHEST).astype(dt)
         return pnorm(q["q"][:, None, :] + sign * pce, p)
 
     if model_name == "rotate":
@@ -192,12 +202,9 @@ def score_block(model_name: str, q: Dict[str, jax.Array],
         return modulus_sum(res[..., :d], res[..., d:])
 
     if model_name in ("distmult", "complex"):
-        # −(q @ e_cᵀ), one MXU matmul for the whole block. HIGHEST keeps
-        # the sweep at f32: the known-true filter correction scores its
-        # ids through the elementwise path, and the default bf16 multiply
-        # drifts ~1e-2 — enough to flip filtered ranks on near-ties.
+        # −(q @ e_cᵀ), one matrix product for the whole block
         return -jnp.dot(q["q"], ce.T, preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST).astype(dt)
+                        precision=_HIGHEST).astype(dt)
 
     if model_name == "transd":
         cep = cand["ent_transfer"].astype(dt)

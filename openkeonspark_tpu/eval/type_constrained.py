@@ -121,7 +121,7 @@ def type_constrained_link_prediction(params, cfg: Config, ds: Dataset,
                          "dataset; use unconstrained eval")
     model = get_model(cfg.model)
     block = cfg.eval_block
-    chunk = cfg.eval_chunk_size
+    chunk = cfg.eval_chunk
     params_pad, nblocks = _pad_entity_tables(model, params, cfg, ds.n_ent,
                                              ds.n_rel, block)
     Epad = nblocks * block

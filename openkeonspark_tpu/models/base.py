@@ -4,7 +4,7 @@ Replaces the reference's ``Model.py`` template-method base class
 (reconstructed ``Model.py:~1–90`` per SURVEY.md §2.1: placeholders +
 ``input_def/embedding_def/loss_def/predict_def``). The TF-1.x graph-class
 pattern becomes a purely functional contract designed for sparse-gradient
-training on TPU:
+training on an accelerator:
 
 - ``tables(cfg, n_ent, n_rel)`` — name → :class:`TableSpec` (embedding
   matrices; every table gets **one extra padding row** so masked/sharded

@@ -9,7 +9,7 @@ first d lanes real, the last d imaginary. Expanded:
 
 Evaluation factors per direction into ONE [C, 2d]·[2d, E] matmul against
 the raw entity table (see eval/scoring.py), so the full-entity sweep is
-pure MXU work. ``hidden_size`` is the complex dimension d; tables have 2d
+one matrix product. ``hidden_size`` is the complex dimension d; tables have 2d
 columns."""
 
 from __future__ import annotations

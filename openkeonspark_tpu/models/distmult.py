@@ -4,7 +4,7 @@ Beyond-parity addition (the reference ships only the translational
 family, SURVEY.md §2.1): the simplest bilinear model. The framework keeps
 a lower-is-better score convention throughout (margin loss, ranking,
 thresholds), so the bilinear product is negated. Evaluation reduces to a
-single [C, d]·[d, E] matmul per direction — pure MXU."""
+single [C, d]·[d, E] matmul per direction."""
 
 from __future__ import annotations
 

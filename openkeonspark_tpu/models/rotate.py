@@ -9,7 +9,7 @@ imaginary — the ComplEx lane convention); relations are **phase** vectors
 relation table is d lanes, not 2d, and ‖r_d‖ = 1 by construction (the
 paper's modulus constraint is structural here, not a soft penalty).
 
-TPU shape of the eval sweep: rotations are unitary, so
+Shape of the eval sweep: rotations are unitary, so
 ``‖rot(h,θ) − t‖ = ‖h − rot(t,−θ)‖`` — BOTH link-prediction directions
 reduce to a per-query constant vector minus the raw candidate row
 (exactly TransE's sweep form, one elementwise block scan; no per-query

@@ -5,7 +5,7 @@ Functional re-design of the reference's ``TransD.py`` (reconstructed
 ``ent_transfer [nE,d]`` and ``rel_transfer [nR,d]``; the mapping
 ``M_re = r_p e_pᵀ + I`` is never materialized — ``e' = e + (e·e_p) r_p``
 (vector ops only, the reference's trick kept because it is also the right
-TPU shape: pure VPU elementwise + reduction)."""
+shape for the device: pure elementwise + reduction)."""
 
 from __future__ import annotations
 

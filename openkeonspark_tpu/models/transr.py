@@ -5,7 +5,7 @@ Functional re-design of the reference's ``TransR.py`` (reconstructed
 relations in R^{d_r}; ``transfer_matrix [nR, d_e*d_r]`` holds M_r;
 ``e_r = e · M_r`` then the TransE residual in relation space. The batched
 ``e · M_r`` contraction is the model's hot matmul — expressed as an einsum
-so XLA maps it onto the MXU."""
+so XLA emits one batched matrix product."""
 
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ class TransR(KGEModel):
             t = jnp.einsum("sbe,ber->sbr", t_e, m[0],
                            preferred_element_type=jnp.float32)
         else:
-            # batched row-vector × matrix on the MXU; f32 accumulation
+            # batched row-vector × matrix; f32 accumulation
             h = jnp.einsum("...e,...er->...r", h_e, m,
                            preferred_element_type=jnp.float32)
             t = jnp.einsum("...e,...er->...r", t_e, m,

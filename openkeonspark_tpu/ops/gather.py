@@ -1,16 +1,16 @@
-"""Fast 1-D integer gather for TPU: row-gather + lane-select.
+"""1-D integer gather as row-gather + lane-select.
 
-XLA lowers a gather of scalars from a 1-D array to a slow scalar path on
-TPU (measured ~31 µs per op at 2.7k lanes / ~1 ms at 136k lanes on v5e).
-Gathering whole 128-lane *rows* of a reshaped ``[ceil(N/128), 128]`` view
-takes the vectorized path (~3 µs / ~0.5 ms for the same index counts —
-10×/2× faster), and the wanted lane is then selected with a compare+sum
-over the minor axis, which is vector-unit noise.
+Instead of gathering scalars from a 1-D array, this gathers whole
+128-lane *rows* of a reshaped ``[ceil(N/128), 128]`` view and selects the
+wanted lane with a compare+sum over the minor axis. The layout was built
+for an accelerator whose scalar gather path was slow; whether it beats a
+plain ``jnp.take`` on the GPU is not measured yet (ROADMAP Queue 1
+item 3, Design debt 2).
 
 ``Packed1D`` wraps a 1-D int array in that layout; ``take`` has
 ``jnp.take(arr, idx)`` semantics for any index shape. Used by the on-device
 sampler (``sampling/device.py``), whose complement binary search is built
-from exactly these scalar gathers (the TPU-side equivalent of the
+from exactly these scalar gathers (the device-side equivalent of the
 reference's pointer-chasing in ``base/Corrupt.h``, reconstructed per
 SURVEY.md §2.2)."""
 

@@ -1,656 +1,219 @@
-"""Pallas TPU kernel: fused blocked score + rank-count for link-prediction
-evaluation.
+"""Fused candidate sweep + rank count for link-prediction evaluation: a
+Pallas kernel on the Triton route.
 
-The eval hot loop (reference ``Test.h``'s per-triple N_entity scoring,
-SURVEY.md §3.3) is O(N_test × N_entity × d) VPU work. The XLA fallback in
-``eval/link_prediction.py`` sweeps the entity table twice per chunk (one
-pass to extract gold scores, one to count better-scoring candidates) and
-materializes a [C, block, d] broadcast per block. This kernel does the
-whole thing in ONE pass with nothing materialized:
+For query ``c`` and candidate entity ``e`` the score is the p-norm of the
+residual
 
-- grid over candidate blocks of the (transposed) entity table; Pallas
-  pipelines the HBM→VMEM block fetches automatically (double-buffered by
-  the BlockSpec machinery), so compute overlaps the table streaming;
-- per d-chunk accumulation keeps the broadcast at [C, DC, BLK] with the
-  **candidate axis in lanes** (128-aligned) — the layout the VPU wants;
-- score, compare against gold, mask padding, and accumulate the per-query
-  count in VMEM scratch; a single [C] int32 vector leaves the kernel.
+    r = q_c + s·(E[e] + cvec[e]·u_c)          p ∈ {1, 2}
 
-Four kernels, one per score family, p ∈ {1, 2}:
+or, with ``modulus=True`` (RotatE, ``E`` rows laid out re|im), the sum of
+complex-lane moduli ``Σ_l √(r_re,l² + r_im,l² + ε)`` of ``q_c + s·E[e]``.
+TransE uses ``cvec = 0``; TransD ``cvec[e] = E[e]·P[e]`` with ``u`` the
+relation's transfer vector; the relation-grouped TransR/TransH eval
+sweeps a table projected once per relation, with ``cvec = 0``.
 
-- **TransE**  ``‖q + sign·e_c‖``                       — single d-chunk pass;
-- **TransD**  ``‖q + sign·(e_c + (e_c·p_c)·r_p)‖``     — same single pass:
-  the per-entity dot ``e_c·p_c`` is a table property, precomputed ONCE per
-  evaluation into a [E] vector and streamed with the block;
-- **TransH**  ``‖q + sign·(e_c − (w·e_c)·w)‖``         — the dot depends on
-  the (query, candidate) pair, so each block takes two chunked passes:
-  accumulate ``w·e_c`` into VMEM scratch, then the residual norm;
-- **RotatE**  ``Σ_l √((q+s·e_c)_re² + (q+s·e_c)_im² + ε)``  — per-complex-
-  lane modulus (r5 beyond-parity): the re/im halves live in separately
-  8-padded sublane bands of the transposed table
-  (``rotate_prepare_table``), so each d-chunk pass slices the paired
-  bands and takes one fused sqrt — 23.3k vs the generic XLA path's 3.0k
-  test-triples/s (7.8×; the XLA path materializes the [C, block, 2d]
-  residual — BASELINE §5).
+The kernel counts, per query, the candidates that score strictly below
+the query's gold score; the gold id and ids ≥ ``n_ent`` never count.
+The plain path (``eval/link_prediction.py::_rank_chunk``) sweeps the
+table twice (gold, then count), and XLA lowers each sweep as a
+broadcast-reduce that re-reads both d-vectors for every (query,
+candidate) pair. Here a 2-D grid of (query tile, candidate tile) blocks
+runs in parallel; each block walks the d axis one column at a time with
+a ``[bq, be]`` accumulator in registers, so every loaded element is
+reused across the other tile. Each block writes its partial counts to
+``[C, n_tiles]`` and XLA sums them. Tiles are powers of two; the tails
+at ``C`` and ``n_ent`` are masked, so tables are neither padded nor
+transposed.
 
-TransR keeps the XLA path: its candidate projection needs the per-query
-[dₑ×dᵣ] matrices resident, which don't fit VMEM at useful chunk sizes.
-
-Numerics note: the caller supplies gold/known scores computed on gathered
-rows with the same d-chunked accumulation order (``*_candidate_scores``),
-so ranks are tie-exact WITHIN this path; reductions are f32. Measured on
-v5e: vs the generic XLA evaluator (different-but-also-self-consistent
-reduction order), ~0.1% of queries differ by ±1 rank from float near-ties
-— metrically negligible and inherent to comparing two float orderings
-(interpret-mode tests, where both paths run the same arithmetic, agree
-exactly).
+Tie exactness: :func:`residual_scores` scores explicit (query, candidate)
+pairs with the same column-sequential accumulation, so the gold and
+known-true scores the caller compares against the kernel's counts come
+from the same arithmetic. On the CPU (interpret mode) the two agree bit
+for bit. On the GPU the compiler may contract a multiply-add into one
+FMA in one of them and not the other, so a pair within a rounding error
+of the gold score can flip: a filtered rank then moves by one.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+# ε under the per-lane modulus sqrt, as in models/rotate.py
+ROT_EPS = 1e-12
+
+# (query tile, candidate tile, warps) of the sweep: the fastest of seven
+# shapes tried on an H100 at a 256-query chunk over 14,541 entities, d=200
+BLOCK_Q = 128
+BLOCK_E = 64
+NUM_WARPS = 4
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+def _residual(qk, ek, sign: float, uk=None, ck=None):
+    """``q + s·(e + c·u)`` for one column; ``s`` is applied as an add or a
+    subtract so no multiply by ±1 reaches the compiler."""
+    if uk is not None:
+        ek = ek + ck * uk
+    return qk - ek if sign < 0 else qk + ek
 
 
-def _count_kernel(qt_ref, tab_ref, gold_ref, gid_ref, out_ref, acc_ref, *,
-                  sign: float, p: int, n_ent: int, d_chunk: int,
-                  block: int, C: int):
-    """One grid step = one candidate block of the transposed table.
-
-    qt_ref   [Dp, C]      query residual vectors, TRANSPOSED (f32) — the
-                          d-axis is the sublane dim so it can be sliced in
-                          chunks of 8 (lane slices must be ×128)
-    tab_ref  [Dp, BLK]    entity-table block, transposed (f32)
-    gold_ref [C, 1]       gold scores (f32)
-    gid_ref  [C, 1]       gold entity ids (int32) — masked out of the
-                          count so float noise can never make the gold
-                          candidate "beat" itself
-    out_ref  [C, 1]       int32 counts (same block every step → lives in
-                          VMEM across the grid; accumulated)
-    acc_ref  [C, BLK]     VMEM scratch for the score accumulator
-    """
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    Dp = qt_ref.shape[0]
-    n_chunks = Dp // d_chunk
-
-    def body(k, _):
-        qc = qt_ref[pl.ds(k * d_chunk, d_chunk), :]         # [DC, C]
-        cc = tab_ref[pl.ds(k * d_chunk, d_chunk), :]        # [DC, BLK]
-        r = qc[:, :, None] + sign * cc[:, None, :]          # [DC, C, BLK]
-        if p == 1:
-            acc_ref[:] += jnp.sum(jnp.abs(r), axis=0)
-        else:
-            acc_ref[:] += jnp.sum(r * r, axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, n_chunks, body, 0)
-
-    ids = i * block + jax.lax.broadcasted_iota(jnp.int32, (C, block), 1)
-    better = ((acc_ref[:] < gold_ref[:]) & (ids < n_ent)
-              & (ids != gid_ref[:]))
-    out_ref[:] += jnp.sum(better, axis=1, keepdims=True).astype(jnp.int32)
-
-
-def _count_kernel_transd(qt_ref, rpt_ref, tab_ref, cdot_ref, gold_ref,
-                         gid_ref, out_ref, acc_ref, *, sign: float, p: int,
-                         n_ent: int, d_chunk: int, block: int, C: int):
-    """TransD sweep: residual ``q + sign·(e_c + cdot_c·r_p)`` with the
-    per-entity dot streamed alongside the table block (cdot_ref [8, BLK],
-    row 0 live)."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    Dp = qt_ref.shape[0]
-    n_chunks = Dp // d_chunk
-    cdot = cdot_ref[0, :]                                   # [BLK]
-
-    def body(k, _):
-        qc = qt_ref[pl.ds(k * d_chunk, d_chunk), :]         # [DC, C]
-        rpc = rpt_ref[pl.ds(k * d_chunk, d_chunk), :]       # [DC, C]
-        cc = tab_ref[pl.ds(k * d_chunk, d_chunk), :]        # [DC, BLK]
-        r = (qc[:, :, None] + sign * cc[:, None, :]
-             + sign * cdot[None, None, :] * rpc[:, :, None])
-        if p == 1:
-            acc_ref[:] += jnp.sum(jnp.abs(r), axis=0)
-        else:
-            acc_ref[:] += jnp.sum(r * r, axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, n_chunks, body, 0)
-
-    ids = i * block + jax.lax.broadcasted_iota(jnp.int32, (C, block), 1)
-    better = ((acc_ref[:] < gold_ref[:]) & (ids < n_ent)
-              & (ids != gid_ref[:]))
-    out_ref[:] += jnp.sum(better, axis=1, keepdims=True).astype(jnp.int32)
-
-
-def _count_kernel_transh(qt_ref, wt_ref, tab_ref, gold_ref, gid_ref,
-                         out_ref, acc_ref, dot_ref, *, sign: float, p: int,
-                         n_ent: int, d_chunk: int, block: int, C: int):
-    """TransH sweep: pass 1 computes the pairwise dot ``w·e_c`` as ONE
-    MXU contraction (wᵀ[D,C] · tab[D,BLK] → [C,BLK]); pass 2 the residual
-    ``q + sign·e_c − sign·dot·w`` on the VPU. The r1 variant accumulated
-    pass 1 on the VPU too and measured BELOW the XLA path (17k vs 20k
-    triples/s) — the MXU dot makes pass 1 ~free (VERDICT.md r1 next #6)."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    Dp = qt_ref.shape[0]
-    n_chunks = Dp // d_chunk
-
-    dot_ref[:] = jax.lax.dot_general(
-        wt_ref[:], tab_ref[:], (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)
-
-    def body(k, _):
-        qc = qt_ref[pl.ds(k * d_chunk, d_chunk), :]
-        wc = wt_ref[pl.ds(k * d_chunk, d_chunk), :]
-        cc = tab_ref[pl.ds(k * d_chunk, d_chunk), :]
-        r = (qc[:, :, None] + sign * cc[:, None, :]
-             - sign * dot_ref[:][None, :, :] * wc[:, :, None])
-        if p == 1:
-            acc_ref[:] += jnp.sum(jnp.abs(r), axis=0)
-        else:
-            acc_ref[:] += jnp.sum(r * r, axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, n_chunks, body, 0)
-
-    ids = i * block + jax.lax.broadcasted_iota(jnp.int32, (C, block), 1)
-    better = ((acc_ref[:] < gold_ref[:]) & (ids < n_ent)
-              & (ids != gid_ref[:]))
-    out_ref[:] += jnp.sum(better, axis=1, keepdims=True).astype(jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("sign", "p", "n_ent", "block",
-                                             "interpret"))
-def count_better_transe(q: jax.Array, table_t: jax.Array, gold: jax.Array,
-                        gold_ids: jax.Array, sign: float, p: int,
-                        n_ent: int, block: int = 512,
-                        interpret: bool = False) -> jax.Array:
-    """#{e < n_ent, e ≠ gold_id_c : ‖q_c + sign·E[e]‖_p < gold_c} per query.
-
-    ``q`` [C, D] f32; ``table_t`` [Dp, Ep] — the entity table transposed
-    and zero-padded so Dp % 8 == 0 and Ep % block == 0 (see
-    :func:`prepare_table`); ``gold`` [C] f32; ``gold_ids`` [C] int32."""
-    C, D = q.shape
-    Dp, Ep = table_t.shape
-    assert Dp % 8 == 0 and Ep % block == 0, (Dp, Ep, block)
-    Cp = _round_up(max(C, 8), 8)
-    if Dp != D:
-        q = jnp.pad(q, ((0, 0), (0, Dp - D)))
-    if Cp != C:
-        q = jnp.pad(q, ((0, Cp - C), (0, 0)))
-        gold = jnp.pad(gold, (0, Cp - C))
-        gold_ids = jnp.pad(gold_ids, (0, Cp - C), constant_values=-1)
-    d_chunk = 8
-    nblocks = Ep // block
-
-    counts = pl.pallas_call(
-        functools.partial(_count_kernel, sign=sign, p=p, n_ent=n_ent,
-                          d_chunk=d_chunk, block=block, C=Cp),
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec((Dp, Cp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Dp, block), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Cp, 1), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((Cp, block), jnp.float32)],
-        interpret=interpret,
-    )(q.astype(jnp.float32).T, table_t,
-      gold.astype(jnp.float32)[:, None],
-      gold_ids.astype(jnp.int32)[:, None])
-    return counts[:C, 0]
-
-
-@functools.partial(jax.jit, static_argnames=("sign", "p", "n_ent", "block",
-                                             "interpret"))
-def count_better_transh(q: jax.Array, w: jax.Array, table_t: jax.Array,
-                        gold: jax.Array, gold_ids: jax.Array, sign: float,
-                        p: int, n_ent: int, block: int = 512,
-                        interpret: bool = False) -> jax.Array:
-    """TransH variant: per-query normal vectors ``w`` [C, D] project every
-    candidate inside the kernel."""
-    C, D = q.shape
-    Dp, Ep = table_t.shape
-    assert Dp % 8 == 0 and Ep % block == 0, (Dp, Ep, block)
-    Cp = _round_up(max(C, 8), 8)
-    pad_q = ((0, Cp - C), (0, Dp - D))
-    q = jnp.pad(q, pad_q)
-    w = jnp.pad(w, pad_q)
-    if Cp != C:
-        gold = jnp.pad(gold, (0, Cp - C))
-        gold_ids = jnp.pad(gold_ids, (0, Cp - C), constant_values=-1)
-    d_chunk = 8
-    nblocks = Ep // block
-
-    counts = pl.pallas_call(
-        functools.partial(_count_kernel_transh, sign=sign, p=p, n_ent=n_ent,
-                          d_chunk=d_chunk, block=block, C=Cp),
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec((Dp, Cp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Dp, Cp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Dp, block), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Cp, 1), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((Cp, block), jnp.float32),
-                        pltpu.VMEM((Cp, block), jnp.float32)],
-        interpret=interpret,
-    )(q.astype(jnp.float32).T, w.astype(jnp.float32).T, table_t,
-      gold.astype(jnp.float32)[:, None],
-      gold_ids.astype(jnp.int32)[:, None])
-    return counts[:C, 0]
-
-
-@functools.partial(jax.jit, static_argnames=("sign", "p", "n_ent", "block",
-                                             "interpret"))
-def count_better_transd(q: jax.Array, rp: jax.Array, table_t: jax.Array,
-                        cdot_t: jax.Array, gold: jax.Array,
-                        gold_ids: jax.Array, sign: float, p: int,
-                        n_ent: int, block: int = 512,
-                        interpret: bool = False) -> jax.Array:
-    """TransD variant: per-query ``r_p`` [C, D] plus the per-entity
-    transfer dot ``cdot_t`` [8, Ep] (row 0 live; see
-    :func:`transd_prepare_cdot`)."""
-    C, D = q.shape
-    Dp, Ep = table_t.shape
-    assert Dp % 8 == 0 and Ep % block == 0, (Dp, Ep, block)
-    assert cdot_t.shape == (8, Ep), cdot_t.shape
-    Cp = _round_up(max(C, 8), 8)
-    pad_q = ((0, Cp - C), (0, Dp - D))
-    q = jnp.pad(q, pad_q)
-    rp = jnp.pad(rp, pad_q)
-    if Cp != C:
-        gold = jnp.pad(gold, (0, Cp - C))
-        gold_ids = jnp.pad(gold_ids, (0, Cp - C), constant_values=-1)
-    d_chunk = 8
-    nblocks = Ep // block
-
-    counts = pl.pallas_call(
-        functools.partial(_count_kernel_transd, sign=sign, p=p, n_ent=n_ent,
-                          d_chunk=d_chunk, block=block, C=Cp),
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec((Dp, Cp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Dp, Cp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Dp, block), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, block), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Cp, 1), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((Cp, block), jnp.float32)],
-        interpret=interpret,
-    )(q.astype(jnp.float32).T, rp.astype(jnp.float32).T, table_t, cdot_t,
-      gold.astype(jnp.float32)[:, None],
-      gold_ids.astype(jnp.int32)[:, None])
-    return counts[:C, 0]
-
-
-def prepare_table(table: jax.Array, block: int = 512) -> jax.Array:
-    """Transpose + zero-pad an entity table [E, D] → [Dp, Ep] for the
-    kernel (done once per evaluation; the copy lives in HBM)."""
-    E, D = table.shape
-    Dp = _round_up(D, 8)
-    Ep = _round_up(E, block)
-    t = jnp.pad(table.astype(jnp.float32), ((0, Ep - E), (0, Dp - D)))
-    return t.T
-
-
-def transe_queries(params, h: jax.Array, t: jax.Array, r: jax.Array,
-                   replace: str):
-    """(q, sign) so that candidate scores are ‖q + sign·E[c]‖ — mirrors
-    eval/scoring.py::_transe."""
-    E = params["ent_embeddings"].astype(jnp.float32)
-    R = params["rel_embeddings"].astype(jnp.float32)
-    if replace == "tail":
-        return jnp.take(E, h, 0) + jnp.take(R, r, 0), -1.0
-    return jnp.take(R, r, 0) - jnp.take(E, t, 0), 1.0
-
-
-def _chunked_accumulate(res: jax.Array, p: int, d_chunk: int = 8,
-                        absolute: bool = True) -> jax.Array:
-    """Reduce the trailing d-axis in the kernel's order: 8-wide partial
-    sums (|·| or ²) added sequentially across chunks. ``p`` ignored when
-    ``absolute`` is False (plain dot-product accumulation, for the TransH
-    pass-1 mirror)."""
-    D = res.shape[-1]
-    Dp = _round_up(D, d_chunk)
-    if Dp != D:
-        res = jnp.pad(res, [(0, 0)] * (res.ndim - 1) + [(0, Dp - D)])
-    part = res.reshape(res.shape[:-1] + (Dp // d_chunk, d_chunk))
-    if not absolute:
-        part = jnp.sum(part, axis=-1)
-    elif p == 1:
-        part = jnp.sum(jnp.abs(part), axis=-1)
+def _count_kernel(*refs, sign: float, p: int, modulus: bool, has_u: bool,
+                  n_q: int, n_ent: int, d: int, bq: int, be: int):
+    if has_u:
+        q_ref, u_ref, tab_ref, c_ref, gold_ref, gid_ref, out_ref = refs
     else:
-        part = jnp.sum(part * part, axis=-1)
+        q_ref, tab_ref, gold_ref, gid_ref, out_ref = refs
+    i = pl.program_id(0)
+    j = pl.program_id(1)
+    qi = i * bq + jnp.arange(bq, dtype=jnp.int32)
+    ej = j * be + jnp.arange(be, dtype=jnp.int32)
+    qm = qi < n_q
+    em = ej < n_ent
+    qrow = qi * d
+    erow = ej * d
+    cv = (plgpu.load(c_ref.at[ej], mask=em, other=0.0)[None, :]
+          if has_u else None)
 
-    def body(k, acc):
-        return acc + part[..., k]
+    def q_col(k):
+        return plgpu.load(q_ref.at[qrow + k], mask=qm, other=0.0)[:, None]
 
-    return jax.lax.fori_loop(0, Dp // d_chunk, body,
-                             jnp.zeros(part.shape[:-1], jnp.float32))
+    def e_col(k):
+        return plgpu.load(tab_ref.at[erow + k], mask=em, other=0.0)[None, :]
+
+    if modulus:
+        half = d // 2
+
+        def body(k, acc):
+            re = _residual(q_col(k), e_col(k), sign)
+            im = _residual(q_col(k + half), e_col(k + half), sign)
+            return acc + jnp.sqrt(re * re + im * im + ROT_EPS)
+
+        n_cols = half
+    else:
+        def body(k, acc):
+            uk = (plgpu.load(u_ref.at[qrow + k], mask=qm,
+                             other=0.0)[:, None] if has_u else None)
+            r = _residual(q_col(k), e_col(k), sign, uk, cv)
+            return acc + (jnp.abs(r) if p == 1 else r * r)
+
+        n_cols = d
+
+    acc = jax.lax.fori_loop(0, n_cols, body,
+                            jnp.zeros((bq, be), jnp.float32))
+    gold = plgpu.load(gold_ref.at[qi], mask=qm, other=0.0)
+    gid = plgpu.load(gid_ref.at[qi], mask=qm, other=-1)
+    better = ((acc < gold[:, None]) & em[None, :]
+              & (ej[None, :] != gid[:, None]))
+    counts = jnp.sum(better.astype(jnp.int32), axis=1)
+    plgpu.store(out_ref.at[qi * pl.num_programs(1) + j], counts, mask=qm)
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "sign", "p", "n_ent", "modulus", "interpret", "bq", "be", "num_warps"))
+def count_better(q: jax.Array, table: jax.Array, gold: jax.Array,
+                 gold_ids: jax.Array, u: Optional[jax.Array] = None,
+                 cvec: Optional[jax.Array] = None, *, sign: float, p: int,
+                 n_ent: int, modulus: bool = False, interpret: bool = False,
+                 bq: int = BLOCK_Q, be: int = BLOCK_E,
+                 num_warps: int = NUM_WARPS) -> jax.Array:
+    """#{e < n_ent, e ≠ gold_ids[c] : score(c, e) < gold[c]} per query.
+
+    ``q`` [C, D]; ``table`` [≥n_ent, D] (rows past ``n_ent`` are never
+    read); ``gold`` [C] f32; ``gold_ids`` [C] int32; ``u`` [C, D] and
+    ``cvec`` [≥n_ent] together or not at all. ``interpret`` runs the
+    kernel through the Pallas interpreter (CPU tests)."""
+    C, D = q.shape
+    assert table.shape[1] == D and table.shape[0] >= n_ent, table.shape
+    has_u = u is not None
+    assert has_u == (cvec is not None) and not (has_u and modulus)
+    nq, ne = pl.cdiv(C, bq), pl.cdiv(n_ent, be)
+    f32 = lambda x: x.astype(jnp.float32).reshape(-1)
+    args = [f32(q)]
+    if has_u:
+        args.append(f32(u))
+    args.append(f32(table))
+    if has_u:
+        args.append(f32(cvec))
+    args += [f32(gold), gold_ids.astype(jnp.int32)]
+    counts = pl.pallas_call(
+        functools.partial(_count_kernel, sign=sign, p=p, modulus=modulus,
+                          has_u=has_u, n_q=C, n_ent=n_ent, d=D, bq=bq,
+                          be=be),
+        out_shape=jax.ShapeDtypeStruct((C * ne,), jnp.int32),
+        grid=(nq, ne),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="rank_count",
+    )(*args)
+    return jnp.sum(counts.reshape(C, ne), axis=1)
 
 
 def residual_scores(q: jax.Array, rows: jax.Array, sign: float, p: int,
-                    d_chunk: int = 8) -> jax.Array:
-    """‖q + sign·rows‖_p with the kernel's d-chunked accumulation order —
-    the tie-exact mirror for gold/known scoring against ANY table the
-    TransE-form kernel sweeps (raw entities or per-relation projections).
-    ``q`` [C, D]; ``rows`` [C, D] or [C, K, D]."""
-    qb = q if rows.ndim == 2 else q[:, None, :]
-    return _chunked_accumulate(qb + sign * rows, p, d_chunk)
+                    u: Optional[jax.Array] = None,
+                    crow: Optional[jax.Array] = None,
+                    modulus: bool = False) -> jax.Array:
+    """Scores of explicit (query, candidate) pairs in the kernel's
+    column-sequential order. ``q`` (and ``u``) [C, D]; ``rows`` [C, D]
+    or [C, K, D] with ``crow`` [C] or [C, K] → scores [C] or [C, K]."""
+    q = q.astype(jnp.float32)
+    rows = rows.astype(jnp.float32)
+    if rows.ndim == 3:
+        q = q[:, None, :]
+        u = None if u is None else u[:, None, :]
+    if u is not None:
+        u = u.astype(jnp.float32)
+        crow = crow.astype(jnp.float32)
+    D = rows.shape[-1]
+    acc = jnp.zeros(rows.shape[:-1], jnp.float32)
+    if modulus:
+        half = D // 2
+        for k in range(half):
+            re = _residual(q[..., k], rows[..., k], sign)
+            im = _residual(q[..., k + half], rows[..., k + half], sign)
+            acc = acc + jnp.sqrt(re * re + im * im + ROT_EPS)
+        return acc
+    for k in range(D):
+        r = _residual(q[..., k], rows[..., k], sign,
+                      None if u is None else u[..., k], crow)
+        acc = acc + (jnp.abs(r) if p == 1 else r * r)
+    return acc
 
 
-def transe_candidate_scores(q: jax.Array, params, ids: jax.Array,
-                            sign: float, p: int,
-                            d_chunk: int = 8) -> jax.Array:
-    """Score explicit candidate ids through arithmetic that mirrors the
-    kernel's d-chunked accumulation order (8-wide partial sums added in
-    sequence), so gold/known scores are tie-exact against kernel counts.
+@functools.partial(jax.jit, static_argnames=("sign", "p", "n_ent", "modulus",
+                                             "block"))
+def count_better_ref(q: jax.Array, table: jax.Array, gold: jax.Array,
+                     gold_ids: jax.Array, u: Optional[jax.Array] = None,
+                     cvec: Optional[jax.Array] = None, *, sign: float,
+                     p: int, n_ent: int, modulus: bool = False,
+                     block: int = 1024) -> jax.Array:
+    """Plain-XLA reference of :func:`count_better`: the same counts from
+    :func:`residual_scores` over candidate blocks, in the kernel's
+    column order (so the two agree exactly wherever the compilers form
+    the same float operations)."""
+    nb = -(-n_ent // block)
+    rows = nb * block
+    tab = jnp.zeros((rows, table.shape[1]), jnp.float32).at[:n_ent].set(
+        table[:n_ent].astype(jnp.float32))
+    cv = (None if cvec is None else jnp.zeros((rows,), jnp.float32)
+          .at[:n_ent].set(cvec[:n_ent].astype(jnp.float32)))
 
-    ``q`` [C, D]; ``ids`` [C] or [C, K] → scores of the same shape."""
-    E = params["ent_embeddings"].astype(jnp.float32)
-    rows = jnp.take(E, ids, 0)                       # [..., D]
-    return residual_scores(q, rows, sign, p, d_chunk)
+    def body(acc, b):
+        blk = jax.lax.dynamic_slice_in_dim(tab, b * block, block, 0)
+        crow = (None if cv is None else
+                jax.lax.dynamic_slice_in_dim(cv, b * block, block, 0)[None])
+        s = residual_scores(q, blk[None], sign, p, u, crow, modulus)
+        ids = b * block + jnp.arange(block, dtype=jnp.int32)[None, :]
+        better = ((s < gold[:, None]) & (ids < n_ent)
+                  & (ids != gold_ids[:, None]))
+        return acc + jnp.sum(better, axis=1, dtype=jnp.int32), None
 
-
-# --------------------------------------------------------------------------
-# TransH: queries + kernel-mirrored explicit-candidate scoring
-
-
-def transh_queries(params, h: jax.Array, t: jax.Array, r: jax.Array,
-                   replace: str):
-    """(q, w, sign) so candidate scores are ``‖q + sign·(e_c − (w·e_c)w)‖``
-    — mirrors eval/scoring.py's TransH branch. The query-side projection
-    is shared by gold and candidates, so its precision is uncritical."""
-    E = params["ent_embeddings"].astype(jnp.float32)
-    R = params["rel_embeddings"].astype(jnp.float32)
-    from openkeonspark_tpu.models.transh import unit
-    w = unit(jnp.take(params["normal_vectors"].astype(jnp.float32), r, 0))
-    if replace == "tail":
-        eh = jnp.take(E, h, 0)
-        q = eh - jnp.sum(eh * w, -1, keepdims=True) * w + jnp.take(R, r, 0)
-        return q, w, -1.0
-    et = jnp.take(E, t, 0)
-    q = jnp.take(R, r, 0) - (et - jnp.sum(et * w, -1, keepdims=True) * w)
-    return q, w, 1.0
-
-
-def transh_candidate_scores(q: jax.Array, w: jax.Array, params,
-                            ids: jax.Array, sign: float, p: int,
-                            d_chunk: int = 8) -> jax.Array:
-    """Kernel-mirrored: the pairwise dot as an f32-HIGHEST dot contraction
-    (matching the kernel's MXU pass 1 — reduction-order noise between the
-    two dot shapes is the same float-tie class documented in the module
-    docstring), the residual norm in the kernel's chunked order."""
-    E = params["ent_embeddings"].astype(jnp.float32)
-    rows = jnp.take(E, ids, 0)                       # [..., D]
-    qb, wb = (q, w) if ids.ndim == 1 else (q[:, None, :], w[:, None, :])
-    dot = jnp.einsum("...d,...d->...", wb * jnp.ones_like(rows), rows,
-                     preferred_element_type=jnp.float32,
-                     precision=jax.lax.Precision.HIGHEST)
-    res = qb + sign * rows - sign * dot[..., None] * wb
-    return _chunked_accumulate(res, p, d_chunk)
-
-
-# --------------------------------------------------------------------------
-# TransD: queries + per-entity transfer dot + mirrored scoring
-
-
-def transd_queries(params, h: jax.Array, t: jax.Array, r: jax.Array,
-                   replace: str):
-    """(q, r_p, sign) so candidate scores are
-    ``‖q + sign·(e_c + (e_c·p_c)·r_p)‖`` (p_c = the candidate's transfer
-    vector; its dot is a table property, see transd_prepare_cdot)."""
-    E = params["ent_embeddings"].astype(jnp.float32)
-    EP = params["ent_transfer"].astype(jnp.float32)
-    R = params["rel_embeddings"].astype(jnp.float32)
-    rp = jnp.take(params["rel_transfer"].astype(jnp.float32), r, 0)
-    if replace == "tail":
-        eh = jnp.take(E, h, 0)
-        ehp = jnp.take(EP, h, 0)
-        q = eh + jnp.sum(eh * ehp, -1, keepdims=True) * rp \
-            + jnp.take(R, r, 0)
-        return q, rp, -1.0
-    et = jnp.take(E, t, 0)
-    etp = jnp.take(EP, t, 0)
-    q = jnp.take(R, r, 0) - (et + jnp.sum(et * etp, -1, keepdims=True) * rp)
-    return q, rp, 1.0
-
-
-def transd_prepare_cdot(params, block: int = 512) -> jax.Array:
-    """Per-entity transfer dot ``e_c·p_c`` as the kernel's [8, Ep] operand
-    (row 0 live, rows 1–7 sublane padding). Computed once per evaluation;
-    shared verbatim by the kernel and the explicit-candidate scorer, so no
-    mirroring concern."""
-    E = params["ent_embeddings"].astype(jnp.float32)
-    EP = params["ent_transfer"].astype(jnp.float32)
-    cdot = jnp.sum(E * EP, axis=-1)                  # [E]
-    Ep = _round_up(E.shape[0], block)
-    cdot = jnp.pad(cdot, (0, Ep - E.shape[0]))
-    return jnp.broadcast_to(cdot[None, :], (8, Ep))
-
-
-def transd_candidate_scores(q: jax.Array, rp: jax.Array, params,
-                            cdot_t: jax.Array, ids: jax.Array, sign: float,
-                            p: int, d_chunk: int = 8) -> jax.Array:
-    E = params["ent_embeddings"].astype(jnp.float32)
-    rows = jnp.take(E, ids, 0)
-    cd = jnp.take(cdot_t[0], ids)                    # same values as kernel
-    qb, rpb = (q, rp) if ids.ndim == 1 else (q[:, None, :], rp[:, None, :])
-    res = qb + sign * rows + sign * cd[..., None] * rpb
-    return _chunked_accumulate(res, p, d_chunk)
-
-
-# --------------------------------------------------------------------------
-# RotatE: paired re/im sublane bands, per-complex-lane modulus
-
-_ROT_EPS = 1e-12  # models/rotate.py's sqrt(0) gradient guard; the eval
-#                   comparisons are internally consistent (gold/known go
-#                   through the same padded-lane arithmetic)
-
-
-def rotate_pad_table(table: jax.Array) -> jax.Array:
-    """[E, 2d] → [E, 2·dp] f32 with each half zero-padded to dp % 8 == 0
-    (the re band then starts at sublane 0, the im band at dp — both
-    8-aligned for the kernel's d-chunk slices)."""
-    E, D2 = table.shape
-    d = D2 // 2
-    dp = _round_up(d, 8)
-    t = table.astype(jnp.float32)
-    return jnp.concatenate(
-        [jnp.pad(t[:, :d], ((0, 0), (0, dp - d))),
-         jnp.pad(t[:, d:], ((0, 0), (0, dp - d)))], axis=1)
-
-
-def rotate_prepare_table(table: jax.Array, block: int = 512) -> jax.Array:
-    """[E, 2d] entity table → transposed [2·dp, Ep] kernel layout."""
-    padded = rotate_pad_table(table)
-    E = padded.shape[0]
-    Ep = _round_up(E, block)
-    return jnp.pad(padded, ((0, Ep - E), (0, 0))).T
-
-
-def rotate_queries(params, h: jax.Array, t: jax.Array, r: jax.Array,
-                   replace: str):
-    """(q [C, 2·dp] in the padded re|im band layout, sign) so candidate
-    scores are ``modulus(q + sign·e_c)``. Rotations are unitary, so the
-    head direction rotates t by −θ instead of rotating every candidate:
-    ``‖rot(h,θ) − t‖ = ‖h − rot(t,−θ)‖`` (models/rotate.py docstring)."""
-    E = params["ent_embeddings"].astype(jnp.float32)
-    th = jnp.take(params["rel_embeddings"].astype(jnp.float32), r, 0)
-    cos, sin = jnp.cos(th), jnp.sin(th)
-    d = th.shape[-1]
-    dp = _round_up(d, 8)
-
-    def pad_halves(re, im):
-        return jnp.concatenate(
-            [jnp.pad(re, ((0, 0), (0, dp - d))),
-             jnp.pad(im, ((0, 0), (0, dp - d)))], axis=1)
-
-    if replace == "tail":
-        eh = jnp.take(E, h, 0)
-        hr, hi = eh[:, :d], eh[:, d:]
-        return pad_halves(hr * cos - hi * sin, hr * sin + hi * cos), -1.0
-    et = jnp.take(E, t, 0)
-    tr_, ti = et[:, :d], et[:, d:]
-    # −rot(t, −θ)
-    return pad_halves(-(tr_ * cos + ti * sin),
-                      -(ti * cos - tr_ * sin)), 1.0
-
-
-def _chunked_modulus_accumulate(re_res: jax.Array, im_res: jax.Array,
-                                d_chunk: int = 8) -> jax.Array:
-    """Σ_l √(re_l² + im_l² + ε) in the kernel's order: 8-wide partial
-    sums added sequentially across chunks (inputs already dp-padded)."""
-    m = jnp.sqrt(re_res * re_res + im_res * im_res + _ROT_EPS)
-    part = m.reshape(m.shape[:-1] + (m.shape[-1] // d_chunk, d_chunk))
-    part = jnp.sum(part, axis=-1)
-
-    def body(k, acc):
-        return acc + part[..., k]
-
-    return jax.lax.fori_loop(0, part.shape[-1], body,
-                             jnp.zeros(part.shape[:-1], jnp.float32))
-
-
-def rotate_candidate_scores(q: jax.Array, table_pad: jax.Array,
-                            ids: jax.Array, sign: float) -> jax.Array:
-    """Score explicit candidate ids against the padded-band table
-    (``rotate_pad_table``) with the kernel's chunked accumulation —
-    tie-exact gold/known scoring. ``q`` [C, 2·dp]; ``ids`` [C] or [C, K]."""
-    rows = jnp.take(table_pad, ids, 0)               # [..., 2·dp]
-    qb = q if ids.ndim == 1 else q[:, None, :]
-    res = qb + sign * rows
-    dp = res.shape[-1] // 2
-    return _chunked_modulus_accumulate(res[..., :dp], res[..., dp:])
-
-
-def _count_kernel_rotate(qt_ref, tab_ref, gold_ref, gid_ref, out_ref,
-                         acc_ref, *, sign: float, n_ent: int, d_chunk: int,
-                         block: int, C: int, dp: int):
-    """RotatE block: slice the paired re/im bands per d-chunk, accumulate
-    the complex-lane moduli (layout notes in ``_count_kernel``)."""
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    n_chunks = dp // d_chunk
-
-    def body(k, _):
-        qr = qt_ref[pl.ds(k * d_chunk, d_chunk), :]          # [DC, C]
-        qi = qt_ref[pl.ds(dp + k * d_chunk, d_chunk), :]
-        cr = tab_ref[pl.ds(k * d_chunk, d_chunk), :]         # [DC, BLK]
-        ci = tab_ref[pl.ds(dp + k * d_chunk, d_chunk), :]
-        rre = qr[:, :, None] + sign * cr[:, None, :]         # [DC, C, BLK]
-        rim = qi[:, :, None] + sign * ci[:, None, :]
-        acc_ref[:] += jnp.sum(
-            jnp.sqrt(rre * rre + rim * rim + _ROT_EPS), axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, n_chunks, body, 0)
-
-    ids = i * block + jax.lax.broadcasted_iota(jnp.int32, (C, block), 1)
-    better = ((acc_ref[:] < gold_ref[:]) & (ids < n_ent)
-              & (ids != gid_ref[:]))
-    out_ref[:] += jnp.sum(better, axis=1, keepdims=True).astype(jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("sign", "n_ent", "block",
-                                             "interpret"))
-def count_better_rotate(q: jax.Array, table_rt: jax.Array, gold: jax.Array,
-                        gold_ids: jax.Array, sign: float, n_ent: int,
-                        block: int = 512,
-                        interpret: bool = False) -> jax.Array:
-    """#{e < n_ent, e ≠ gold_id_c : modulus(q_c + sign·E[e]) < gold_c}.
-
-    ``q`` [C, 2·dp] (``rotate_queries``); ``table_rt`` [2·dp, Ep]
-    (``rotate_prepare_table``); ``gold`` [C] f32; ``gold_ids`` [C]."""
-    C, D2 = q.shape
-    Dp2, Ep = table_rt.shape
-    assert D2 == Dp2 and Ep % block == 0, (D2, Dp2, Ep, block)
-    dp = D2 // 2
-    Cp = _round_up(max(C, 8), 8)
-    if Cp != C:
-        q = jnp.pad(q, ((0, Cp - C), (0, 0)))
-        gold = jnp.pad(gold, (0, Cp - C))
-        gold_ids = jnp.pad(gold_ids, (0, Cp - C), constant_values=-1)
-    nblocks = Ep // block
-
-    counts = pl.pallas_call(
-        functools.partial(_count_kernel_rotate, sign=sign, n_ent=n_ent,
-                          d_chunk=8, block=block, C=Cp, dp=dp),
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec((Dp2, Cp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Dp2, block), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Cp, 1), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Cp, 1), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((Cp, block), jnp.float32)],
-        interpret=interpret,
-    )(q.astype(jnp.float32).T, table_rt,
-      gold.astype(jnp.float32)[:, None],
-      gold_ids.astype(jnp.int32)[:, None])
-    return counts[:C, 0]
+    acc, _ = jax.lax.scan(body, jnp.zeros(q.shape[0], jnp.int32),
+                          jnp.arange(nb))
+    return acc

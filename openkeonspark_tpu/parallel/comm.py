@@ -1,9 +1,5 @@
 """Communication-volume accounting: measured collective payload bytes from
-compiled HLO, plus an analytic scaling model.
-
-The north star requires scaling-efficiency evidence at ≥2 hosts; real
-multi-chip hardware is absent in this environment (VERDICT.md "What's
-missing" #2), so this module provides the honest stand-in:
+compiled HLO.
 
 - :func:`collective_bytes` compiles a step function and parses its
   (per-device SPMD) HLO for collective ops, summing output payload bytes
@@ -12,10 +8,9 @@ missing" #2), so this module provides the honest stand-in:
   exchange-vs-psum test asserts on.
 - :func:`wire_bytes_estimate` converts payloads to per-device on-wire
   traffic with the standard ring-algorithm factors.
-- :func:`predict_scaling` turns a measured single-chip step time + the
-  counted bytes into predicted step time / scaling efficiency per mesh
-  shape and link bandwidth (ICI vs DCN), with the model stated in the
-  output. ``tools/scaling_report.py`` prints the table for BASELINE.md.
+
+These are byte counts, not times: the time collectives take comes from
+a device trace on the chips themselves.
 """
 
 from __future__ import annotations
@@ -252,8 +247,8 @@ def collective_bytes(fn: Callable, *args, optimized: bool = False,
     Default (``optimized=False``): parse the lowered, pre-backend HLO —
     shard_map bodies carry per-shard shapes and the WIRE DTYPE is
     preserved (XLA:CPU's float-normalization pass upcasts bf16
-    collectives to f32, which would overstate TPU traffic 2× when this
-    runs on the CPU-mesh stand-in). ``optimized=True`` parses the
+    collectives to f32, which would overstate the accelerator's traffic
+    2× when this runs on the CPU-mesh stand-in). ``optimized=True`` parses the
     backend-compiled SPMD module instead — faithful to what this host's
     backend will actually run, including any collective rewrites."""
     jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
@@ -279,89 +274,3 @@ def wire_bytes_estimate(payload: Dict[str, int], n_devices: int) -> int:
                + payload.get("reduce-scatter", 0) * f
                + payload.get("all-to-all", 0) * f
                + payload.get("collective-permute", 0))
-
-
-# Per-chip interconnect bandwidths (bytes/s, one direction), with
-# optimistic/pessimistic brackets — the r2 judge flagged the old point
-# estimates as unsourced (VERDICT.md r2 weak #9). Sources:
-# - ICI: Google Cloud's TPU v5e system architecture page specifies
-#   1600 Gbps (= 2e11 B/s) aggregate inter-chip interconnect per chip
-#   (2D torus, 4 links). A single ring collective drives one link pair:
-#   nominal effective figure 4.5e10 B/s (≈ one 400 Gbps link pair,
-#   matching the per-link figures tabulated in the public "How to Scale
-#   Your Model" book, jax-ml.github.io/scaling-book). Pessimistic = half
-#   (one link, congested torus mapping); optimistic = 2× (XLA splitting a
-#   collective across both torus dimensions).
-# - DCN: 200 Gbps host NICs (v5e default per-host data-center network)
-#   = 2.5e10 B/s line rate shared by the host's chips; pessimistic half
-#   (protocol overhead/sharing), optimistic 2× (dual NIC / 400 Gbps).
-ICI_BW = 4.5e10
-DCN_BW = 2.5e10
-BW_BRACKETS = (0.5, 1.0, 2.0)   # pessimistic / nominal / optimistic
-OVERLAP_BRACKETS = (0.0, 0.9, 1.0)
-
-
-def predict_scaling(single_chip_step_s: float,
-                    comm_payload_by_mesh: Dict[tuple, Dict[str, int]],
-                    chips_per_host: int = 4, bw_scale: float = 1.0,
-                    overlap: float = 0.9,
-                    link_model: str = "pipelined") -> Dict[tuple, dict]:
-    """Analytic scaling table. Model (stated for the judge): a mesh step's
-    time = max(compute, comm) + (1 − overlap)·min(compute, comm), where
-    compute = the measured single-chip step time (weak scaling: global
-    batch ∝ devices, per-device batch constant). Efficiency =
-    compute / step = achieved throughput relative to linear scaling.
-
-    Comm time, refined two-link model (round 4 — the r3 model charged ALL
-    bytes at one link rate and ignored NIC sharing):
-
-    - When the payload dict carries the ``wire_ici``/``wire_dcn`` split
-      (``collective_bytes(..., chips_per_host=L)``):
-      ``t_ici = wire_ici / ICI_BW`` (per-chip link) and
-      ``t_dcn = L·wire_dcn / DCN_BW`` — the host NIC is **shared by the
-      host's L chips**, so per-device DCN bytes are multiplied back to
-      host level. ``link_model='pipelined'`` (default) takes
-      ``comm = max(t_ici, t_dcn)`` — ICI and DCN transfers ride separate
-      DMA engines and the microbatched chains give the scheduler
-      independent work for both (DESIGN.md §overlap); ``'serial'``
-      brackets the pessimistic ``t_ici + t_dcn``.
-    - Legacy payload dicts (no split) fall back to the r3 single-link
-      model: all wire bytes at ICI inside a host, all at (unshared) DCN
-      beyond — optimistic per-chip DCN but pessimistic in charging ICI
-      traffic at DCN rate.
-
-    ``overlap`` is the fraction of the shorter of compute/comm hidden
-    under the longer — 0.9 assumes XLA's latency-hiding scheduler
-    overlaps the microbatched exchange chains with compute (DESIGN.md
-    records the HLO chain-independence evidence); bracket with
-    ``OVERLAP_BRACKETS``. ``bw_scale`` multiplies both bandwidths
-    (``BW_BRACKETS``)."""
-    out = {}
-    for mesh_shape, payload in comm_payload_by_mesh.items():
-        n = 1
-        for s in mesh_shape:
-            n *= s
-        compute = single_chip_step_s
-        wire = wire_bytes_estimate(payload, n)
-        if "wire_dcn" in payload:
-            el = min(chips_per_host, n)
-            t_ici = payload["wire_ici"] / (ICI_BW * bw_scale)
-            t_dcn = payload["wire_dcn"] * el / (DCN_BW * bw_scale)
-            comm = (t_ici + t_dcn if link_model == "serial"
-                    else max(t_ici, t_dcn))
-            link = "ICI" if payload["wire_dcn"] == 0 else "ICI+DCN"
-        else:
-            bw = (ICI_BW if n <= chips_per_host else DCN_BW) * bw_scale
-            comm = wire / bw
-            link = "ICI" if n <= chips_per_host else "DCN"
-        step = max(compute, comm) + min(compute, comm) * (1.0 - overlap)
-        out[mesh_shape] = {
-            "devices": n,
-            "wire_bytes_per_device": wire,
-            "wire_dcn_per_device": payload.get("wire_dcn"),
-            "comm_s": comm,
-            "predicted_step_s": step,
-            "scaling_efficiency": compute / step,
-            "link": link,
-        }
-    return out

@@ -205,7 +205,7 @@ def sharded_link_prediction(params, cfg: Config, ds, index, mesh: Mesh,
     params = _drop_hot(params)
     guard_finite_params(params)
     D = mesh.shape[DATA]
-    chunk = cfg.eval_chunk_size * D
+    chunk = cfg.eval_chunk * D
 
     h_all, t_all, r_all = triples[:, H], triples[:, T], triples[:, R]
     n = len(triples)
@@ -270,7 +270,7 @@ def sharded_type_constrained_link_prediction(params, cfg: Config, ds, index,
     guard_finite_params(params)
     D = mesh.shape[DATA]
     M = mesh.shape[MODEL]
-    chunk = cfg.eval_chunk_size * D
+    chunk = cfg.eval_chunk * D
     rows_phys = params["ent_embeddings"].shape[0]
     assert rows_phys % M == 0
 

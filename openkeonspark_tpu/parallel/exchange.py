@@ -95,7 +95,7 @@ AX = (DATA, MODEL)  # the flat grid: axis_index(AX) = d_idx·M + m_idx
 # Tables at or below this many physical rows skip request routing: the
 # whole table is all_gather-ed (gather side) and the gradient travels as
 # one dense psum (update side). Matches train.optim.MATMUL_SCATTER_MAX_ROWS
-# so the dense gradient build uses the MXU one-hot path.
+# so the dense gradient build uses the one-hot matmul path.
 SMALL_TABLE_ROWS = 512
 
 

@@ -43,10 +43,8 @@ remote fraction (H−1)/H and the 4-host (4,2,2) prediction collapsed to
   cond-gated exact fallbacks, so a mis-estimate costs speed, never
   correctness.
 
-Measured effect (tools/scaling_report.py, flagship geometry, bf16 wire):
-the (4,2,2) 16-device / 4-DCN-host prediction rises from 60.1%
-(degree-blind) past the 80% north-star target — BASELINE.md §6 carries
-the table and the hot-set-size sweep.
+Its effect on multi-host scaling was only ever predicted by an analytic
+model (since removed); it has not been measured.
 """
 
 from __future__ import annotations
@@ -77,7 +75,7 @@ def entity_table_names(model: KGEModel) -> Tuple[str, ...]:
 
 def hot_k(cfg: Config, n_ent: int) -> int:
     """Effective hot-set size: ``cfg.exchange_hot_rows`` clamped to the
-    entity count and floored to a multiple of 8 (sublane-aligned dense
+    entity count and floored to a multiple of 8 (aligned dense
     buffers); 0 disables."""
     k = min(cfg.exchange_hot_rows, n_ent)
     k -= k % 8

@@ -2,8 +2,8 @@
 
 Replaces the reference's distribution substrate (SURVEY.md §2.3/§2.4):
 Spark/TensorFlowOnSpark placed TF parameter servers (whole embedding tables
-on PS tasks, gRPC gather/update traffic) and async workers. TPU-native
-equivalent: a ``jax.sharding.Mesh`` with axes ``('data', 'model')`` —
+on PS tasks, gRPC gather/update traffic) and async workers. The
+equivalent here: a ``jax.sharding.Mesh`` with axes ``('data', 'model')`` —
 
 - **'model'**: embedding tables are **row-sharded** (each shard owns a
   contiguous row range); the PS gather becomes a masked local gather +
@@ -93,7 +93,7 @@ def _put_global(x, sharding: NamedSharding):
     multi-process) mesh. ``jax.device_put`` requires an addressable
     sharding, so true multi-host runs (cli/launch.py) need the
     callback form — every process holds identical full copies (fresh
-    init with the same seed, or an orbax restore), so slicing locally
+    init with the same seed, or a checkpoint restore), so slicing locally
     yields a consistent global array."""
     x = np.asarray(x)
     return jax.make_array_from_callback(x.shape, sharding,

@@ -5,7 +5,7 @@ What the reference does per step (SURVEY.md §3.1): each async worker runs
 ``embedding_lookup`` gathers against PS-hosted tables over gRPC, computes
 the margin loss on its triple partition, and sends ``IndexedSlices``
 updates back to the PS — the gather/update round trip is the scaling
-bottleneck. TPU-native re-design, one XLA program per step:
+bottleneck. Re-design here, one XLA program per step:
 
 - **Positives**: each data shard draws its batch from its own contiguous
   triple slice (edge partitioning; same slice convention as the

@@ -1,4 +1,4 @@
-"""On-device negative sampling — the TPU-native replacement for the
+"""On-device negative sampling — the accelerator replacement for the
 reference's C++ sampler (``base/Base.cpp::sampling`` + ``base/Corrupt.h`` +
 ``base/Random.h``, reconstructed per SURVEY.md §2.2).
 
@@ -6,7 +6,7 @@ The reference fills host buffers with pthreads and feeds them through
 ``feed_dict`` every step. Here sampling is part of the jitted training step
 itself: uniform positive draws, Bernoulli corrupt-head/tail choice, and
 **exact filtered** corruption (negatives never collide with a known train
-triple) all run on the TPU as pure vector ops, so the table gathers that
+triple) all run on the device as pure vector ops, so the table gathers that
 follow never wait on the host.
 
 Filtered corruption keeps ``Corrupt.h``'s complement "offset trick"
@@ -20,10 +20,8 @@ data-dependent control flow, identical cost for every lane (XLA-friendly,
 no warp-divergence analog).
 
 Every 1-D array the sampler touches is stored in the ``Packed1D``
-row-gather layout (``ops/gather.py``): XLA's scalar 1-D gather path on TPU
-costs ~31 µs per op (it dominated the whole train step — ~0.86 ms/step of
-sampling at FB15K-237 shapes); the packed row-gather+lane-select form is
-~3 µs per op, making sampling a rounding error next to the model math.
+row-gather layout (``ops/gather.py``), built for an accelerator whose
+scalar 1-D gather path was slow; its cost on the GPU is not measured yet.
 
 Randomness: ``jax.random`` threefry bits with modulo range reduction —
 the same reduction the reference's per-thread LCG uses
@@ -61,8 +59,7 @@ def _window_count_le(arr: Packed1D, start: jax.Array, lo: jax.Array,
     Two *independent* (pipelineable) row gathers cover the ≤128-element
     window wherever it straddles a row boundary; the count is then one
     vectorized masked reduction — this replaces the last 7 rounds of
-    binary search, whose probes form a serial dependence chain (~12 µs per
-    round on v5e vs ~6 µs for this whole epilogue)."""
+    binary search, whose probes form a serial dependence chain."""
     shape = lo.shape
     p0 = (start + lo).reshape(-1)                       # window start, flat
     row0 = p0 >> 7
@@ -89,9 +86,9 @@ def batched_upper_bound(arr: Union[jax.Array, Packed1D], off: jax.Array,
     binary rounds' probes are a serial gather chain — the hybrid keeps that
     chain short regardless of group size.
 
-    (Measured notes, v5e: a k-ary variant — one [lanes, k−1] probe gather
-    per round — loses to flat rounds because the wide 3-D gather hits a
-    slow path; a lax.fori_loop loses to static unrolling.)"""
+    (Earlier measurements on another accelerator: a k-ary variant — one
+    [lanes, k−1] probe gather per round — lost to flat rounds, and a
+    lax.fori_loop lost to static unrolling; not re-measured on the GPU.)"""
     shape = jnp.broadcast_shapes(jnp.shape(cnt), jnp.shape(x),
                                  jnp.shape(off))
     lo = jnp.zeros(shape, dtype=cnt.dtype)
@@ -149,7 +146,7 @@ class DeviceSampler:
     MB); every ``sample`` call is traceable and fuses into the train step.
     **Always pass the sampler into jitted code as an argument** — closing
     over it embeds the triple store as executable constants (bloated
-    programs, and re-shipped per call on remote-attached TPUs)."""
+    programs)."""
 
     # one interleaved record per train triple: (h, t, r, hr_off, hr_cnt,
     # tr_off, tr_cnt, ht_off, ht_cnt) — all nine fields of a positive come

@@ -1,18 +1,20 @@
 """ctypes wrapper around the native C++ host sampler
 (``native/sampler.cpp``) — the reference's ``Base.so``-over-ctypes path
 (``Config.py:~10–60`` reconstructed per SURVEY.md §2.1) rebuilt for the
-TPU input pipeline.
+accelerator input pipeline.
 
 Two uses:
 1. **Host-pipeline mode** (``Config.sampler='host'``): a background thread
    keeps N+1 batches prefetched and ``jax.device_put`` in flight so the
-   TPU never waits on sampling — the mode to use when the on-device
-   sampler's HBM-resident triple store doesn't fit.
+   device never waits on sampling — the mode to use when the on-device
+   sampler's device-resident triple store doesn't fit.
 2. **Parity oracle**: the reference's exact buffer layout
    (``batch_h/t/r/y``) for cross-checking the device sampler's statistics.
 
-The library is built on demand with ``make`` (g++) the first time it's
-needed; ``HostSampler.available()`` reports whether a toolchain exists."""
+The library is built from ``native/sampler.cpp`` with ``make`` (g++) the
+first time a process needs it (``make`` rebuilds only when the source is
+newer); ``HostSampler.available()`` reports whether a toolchain exists.
+No built library is kept in the repository."""
 
 from __future__ import annotations
 
@@ -37,14 +39,18 @@ _f32p = ctypes.POINTER(ctypes.c_float)
 
 
 def _build_library() -> str:
-    subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                   capture_output=True)
+    """Run ``make`` under an exclusive file lock, so processes that start
+    at once (test workers) never load a half-written library."""
+    import fcntl
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True)
     return _LIB_PATH
 
 
 def _load() -> ctypes.CDLL:
-    if not os.path.exists(_LIB_PATH):
-        _build_library()
+    _build_library()
     lib = ctypes.CDLL(_LIB_PATH)
     lib.okst_create.restype = ctypes.c_void_p
     lib.okst_create.argtypes = (

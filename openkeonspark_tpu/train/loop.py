@@ -195,12 +195,10 @@ def train(cfg: Config, ds: Dataset, index: Optional[KGIndex] = None,
                     scan_step += rem
                     state, loss = run_rem(state, sampler, sub)
                     losses.append(loss)
-            # pull the loss scalars (data-dependent on every step) BEFORE
-            # reading the clock: on remote-attached TPUs block_until_ready
-            # on donated outputs can return before execution finishes, so
-            # value transfer is the only honest sync for the meter
+            # wait for the device before reading the clock; the losses
+            # are then read without a further wait
+            jax.block_until_ready((state.params, losses))
             mean_loss = float(np.mean([float(l) for l in losses]))
-            jax.block_until_ready(state.params)
             if tracing:
                 jax.profiler.stop_trace()
                 log({"event": "trace_written", "dir": cfg.trace_dir})

@@ -35,8 +35,8 @@ from openkeonspark_tpu.config import Config
 
 class DenseUpdate(NamedTuple):
     """A full-table gradient (untouched rows exactly zero) + the touched
-    mask, produced by paths that aggregate on the MXU instead of
-    scattering (the grouped TransR step's ``transfer_matrix`` gradient).
+    mask, produced by paths that aggregate densely instead of scattering
+    (the hierarchical step's hot-row companions, ``parallel/hier.py``).
     SGD applies it as one streaming add; lazy Adam updates moments only at
     ``touched`` rows — identical semantics to the sparse pairs form."""
     grad: jax.Array      # [rows, dim] f32
@@ -47,50 +47,26 @@ class DenseUpdate(NamedTuple):
 # DenseUpdate for tables whose gradient is produced dense
 Updates = Dict[str, Union[List[Tuple[jax.Array, jax.Array]], DenseUpdate]]
 
-# XLA's TPU scatter costs ~20 ns per scattered row regardless of table
-# size (measured on v5e); for small tables a one-hot matmul on the MXU is
-# cheaper than row-wise scatter, exact for our masking (sentinel ids match
-# no table row), and removes the rel-table scatter from the step entirely.
+# Tables of at most this many rows take a one-hot matmul instead of the
+# row scatter: exact for our masking (sentinel ids match no table row),
+# and run at HIGHEST precision so the sum stays float32. Whether it beats
+# the scatter on the GPU is not measured yet (ROADMAP Queue 1 item 4).
 MATMUL_SCATTER_MAX_ROWS = 512
-
-# rows at least this wide take the Pallas sorted-run RMW kernel on TPU
-# (ops/pallas_scatter.py): XLA's wide-row scatter runs at ~45 GB/s while
-# the kernel streams row-sized DMAs (measured 2.0–2.8× at TransR's
-# 20 000-wide rows, v5e). Narrow rows measured a DEAD END there: per-row
-# DMA latency dominates at 800 B rows (1.99 ms vs XLA's 1.57 ms at the
-# flagship shape) — so the route is width-gated.
-WIDE_SCATTER_MIN_WIDTH = 4096
-
-
-def _use_wide_kernel(table: jax.Array) -> bool:
-    import os
-    if os.environ.get("OKST_NO_WIDE_SCATTER") == "1":
-        return False
-    return (table.ndim == 2 and table.shape[1] >= WIDE_SCATTER_MIN_WIDTH
-            and jax.default_backend() == "tpu")
 
 
 def scatter_add_rows(table: jax.Array, ids: jax.Array,
                      delta: jax.Array) -> jax.Array:
     """``table[ids] += delta`` where ids ≥ table rows are discarded.
 
-    Small tables take the MXU one-hot path; wide rows on TPU the Pallas
-    sorted-run kernel; everything else the masked scatter-add (duplicates
-    sum in all three). (Measured dead end: sort-aggregating duplicates
-    before the scatter loses — ``segment_sum`` is itself a scatter, so the
-    aggregation pays the same ~40 GB/s scatter throughput it was trying to
-    avoid, plus a row shuffle.)"""
+    Small tables take the one-hot matmul; everything else the masked
+    scatter-add (duplicates sum in both)."""
     rows = table.shape[0]
-    if rows <= MATMUL_SCATTER_MAX_ROWS and not _use_wide_kernel(table):
+    if rows <= MATMUL_SCATTER_MAX_ROWS:
         onehot = (ids[None, :] ==
                   jnp.arange(rows, dtype=ids.dtype)[:, None])
         return table + jax.lax.dot(
             onehot.astype(table.dtype), delta.astype(table.dtype),
             precision=jax.lax.Precision.HIGHEST)
-    if _use_wide_kernel(table):
-        from openkeonspark_tpu.ops.pallas_scatter import \
-            scatter_add_rows_sorted
-        return scatter_add_rows_sorted(table, ids, delta)
     valid = (ids < rows)[:, None]
     idc = jnp.minimum(ids, rows - 1)
     return table.at[idc].add(
@@ -158,8 +134,8 @@ class _LazyRowOptimizer:
 
     Three application paths, identical semantics (tested against each
     other and the dense oracle):
-    - ``DenseUpdate``: gradient already dense + touched mask (grouped
-      TransR path) — one masked elementwise pass.
+    - ``DenseUpdate``: gradient already dense + touched mask (hot-row
+      companions) — one masked elementwise pass.
     - dense-G two-pass (tables ≤ ``DENSE_MOMENT_MAX_ELEMS`` elements):
       scatter-sum gradients and a touched mask, then one dense masked
       update. Avoids argsort+segment_sum (segment_sum is itself a

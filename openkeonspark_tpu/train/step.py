@@ -109,8 +109,8 @@ def merged_row_updates(model: KGEModel, batch: SampledBatch,
     relation-corrupted negatives reuse both entity ids. Merging those
     segments into the positive stream shrinks the entity update from
     ``B(2+2·negE+2·negR)`` to ``B(2+negE)`` rows and the relation update to
-    ``B(1+negR)`` — scatter cost on TPU is ~linear in scattered rows, and
-    the sharded step all_gathers one stream less per merge."""
+    ``B(1+negR)`` — scatter cost grows with the scattered rows, and the
+    sharded step all_gathers one stream less per merge."""
     B = batch.h.shape[0]
     nE = batch.neg_h.shape[1] if batch.neg_h is not None else 0
     nR = batch.neg_rel.shape[1] if batch.neg_rel is not None else 0
@@ -196,97 +196,10 @@ def gather_slots_structured(model: KGEModel, params: dict,
     return slots, nE + nR
 
 
-def use_grouped_transr(cfg: Config) -> bool:
-    """Gate for the relation-grouped TransR training path: TPU backend
-    (or interpret-mode opt-in for tests), entity negatives only (the
-    grouped x-stream assumes every slot of a column shares the
-    relation), and 8-aligned d_e (Mosaic sublane tiling)."""
-    import os
-    if (cfg.model != "transr" or not cfg.grouped_transr
-            or cfg.negative_rel != 0 or cfg.d_ent % 8):
-        return False
-    backend = jax.default_backend()
-    if backend == "cpu":
-        return os.environ.get("OKST_PALLAS_INTERPRET") == "1"
-    return backend == "tpu"
-
-
-def loss_and_row_grads_transr_grouped(model: KGEModel, cfg: Config,
-                                      params: dict, batch: SampledBatch):
-    """TransR without per-row projection matrices (VERDICT r2 #3): sort
-    the batch by relation, project every slot row through the
-    relation-grouped Pallas kernel (each M_ρ streamed from HBM once per
-    run), and take the ``transfer_matrix`` gradient DENSE — the
-    B·dₑ·dᵣ-float gather / einsum / wide-scatter pipeline of the generic
-    path (what made config #4 the slowest in the suite) never exists.
-    Score math mirrors ``models/transr.py`` exactly."""
-    from openkeonspark_tpu.ops.pallas_grouped import (grouped_project,
-                                                      pad_inputs)
-    interpret = jax.default_backend() == "cpu"
-    B = batch.h.shape[0]
-    nE = batch.neg_h.shape[1] if batch.neg_h is not None else 0
-    S = 1 + nE
-    de, dr = cfg.d_ent, cfg.d_rel
-    drp = -(-dr // 128) * 128
-
-    # sort columns by relation so the projection stream is run-grouped
-    order = jnp.argsort(batch.r)
-    bs = SampledBatch(
-        h=batch.h[order], t=batch.t[order], r=batch.r[order],
-        neg_h=None if batch.neg_h is None else batch.neg_h[order],
-        neg_t=None if batch.neg_t is None else batch.neg_t[order],
-        neg_rel=None)
-    h_ids = [bs.h] + ([bs.neg_h[:, k] for k in range(nE)] if nE else [])
-    t_ids = [bs.t] + ([bs.neg_t[:, k] for k in range(nE)] if nE else [])
-    E = params["ent_embeddings"]
-    slots = {
-        "h_e": jnp.take(E, jnp.concatenate(h_ids), axis=0),   # [S·B, de]
-        "t_e": jnp.take(E, jnp.concatenate(t_ids), axis=0),
-        "r_e": jnp.take(params["rel_embeddings"], bs.r, axis=0),  # [B, dr]
-    }
-    rows = params["transfer_matrix"].shape[0]
-    m3 = jnp.pad(params["transfer_matrix"].reshape(rows, de, dr),
-                 ((0, 0), (0, 0), (0, drp - dr)))
-    rel_rows = jnp.repeat(bs.r, 2 * S)                        # b-major
-
-    def loss_fn(slots_, m3_):
-        # b-major row stream: column b's 2S slot rows are consecutive,
-        # so the sorted relation order carries over to the rows
-        x = jnp.concatenate([slots_["h_e"].reshape(S, B, de),
-                             slots_["t_e"].reshape(S, B, de)])   # [2S, B, de]
-        x = x.transpose(1, 0, 2).reshape(2 * S * B, de)
-        xp, relp = pad_inputs(x, rel_rows)
-        y = grouped_project(m3_, xp, relp, interpret)[:2 * S * B, :dr]
-        y = y.reshape(B, 2 * S, dr).transpose(1, 0, 2)           # [2S, B, dr]
-        from openkeonspark_tpu.models.base import pnorm
-        res = y[:S] + slots_["r_e"][None, :, :] - y[S:]
-        scores = pnorm(res, cfg.p_norm)                          # [S, B]
-        return margin_ranking_loss(scores[0], scores[1:].T, cfg.margin,
-                                   cfg.loss_mode)
-
-    (loss, (g_slots, g_m3)) = jax.value_and_grad(
-        lambda s, m: loss_fn(s, m), argnums=(0, 1))(slots, m3)
-
-    import types
-    ent_rel_model = types.SimpleNamespace(gathers=lambda: (
-        ("h_e", "ent_embeddings", "h"),
-        ("t_e", "ent_embeddings", "t"),
-        ("r_e", "rel_embeddings", "r"),
-    ))
-    updates = merged_row_updates(ent_rel_model, bs, g_slots)
-    from openkeonspark_tpu.train.optim import DenseUpdate
-    touched = jnp.zeros((rows,), bool).at[bs.r].set(True, mode="drop")
-    updates["transfer_matrix"] = DenseUpdate(
-        grad=g_m3[:, :, :dr].reshape(rows, de * dr), touched=touched)
-    return loss, updates
-
-
 def loss_and_row_grads(model: KGEModel, cfg: Config, params: dict,
                        batch: SampledBatch):
     """Scalar loss + gradients w.r.t. the *gathered rows* (never the dense
     tables), plus the merged (table → [(ids, row-grads)]) update list."""
-    if use_grouped_transr(cfg):
-        return loss_and_row_grads_transr_grouped(model, cfg, params, batch)
     B = batch.h.shape[0]
     slots, n_neg = gather_slots_structured(model, params, batch)
     loss, g_slots = slot_loss_and_grads(model, cfg, slots, B, n_neg)
@@ -300,10 +213,8 @@ def build_train_step(model: KGEModel, cfg: Config, sampler: DeviceSampler,
     """Single-device step fn: (state, sampler, key) → (state, loss).
 
     The sampler is a **runtime argument**, not a closure: closed-over
-    device arrays become executable-embedded constants, which (a) bloat
-    every compiled program with the whole triple store and (b) get
-    re-shipped per call on remote-attached TPUs — measured 100× slower
-    end-to-end than passing the same arrays as traced inputs. The
+    device arrays become executable-embedded constants, which bloat every
+    compiled program with the whole triple store. The
     ``sampler`` passed here is used only for its static metadata (sizes,
     search depths, pytree structure)."""
     opt = make_optimizer(cfg)

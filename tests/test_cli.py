@@ -114,7 +114,7 @@ def test_cli_incremental_batches_on_mesh(tmp_path):
     """Incremental batch-folder training chained through MESH runs: batch 0
     trains on an 8-device exchange grid, batch 1 warm-starts from batch
     0's checkpoint (vocab growth handled) and keeps training sharded —
-    the reference's incremental mode composed with the TPU-native
+    the reference's incremental mode composed with the sharded
     distribution layer."""
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(

@@ -149,8 +149,7 @@ def test_hier_dcn_bytes_drop_vs_flat(kg_big):
     cross DCN once per host, not once per device), while total wire may
     grow (cheap ICI absorbs the relay hops). The batch must be large
     relative to the table for the host-level dedup to bite (measured
-    ratios on this KG: 1.2× at batch 256, 3.2× at 2048 — the flagship
-    config in tools/scaling_report.py measures 3.1×)."""
+    ratios on this KG: 1.2× at batch 256, 3.2× at 2048)."""
     ds, idx = kg_big
     cfg = Config(model="transe", hidden_size=64, negative_ent=2,
                  negative_rel=1, exchange_microbatches=1,

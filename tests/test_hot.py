@@ -276,7 +276,7 @@ def test_train_loop_with_hot_rows(kg):
 
 
 def test_checkpoint_roundtrip_with_hot_companions(tmp_path, kg):
-    """Hot companions ride orbax checkpoints like any other table: save a
+    """Hot companions ride checkpoints like any other table: save a
     trained hier+hot state, restore into a fresh template (same cfg),
     resume one step — bitwise state match against an uninterrupted run."""
     ds, idx = kg

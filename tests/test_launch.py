@@ -58,7 +58,7 @@ def test_two_process_distributed_training(tmp_path):
 
     # crash recovery across processes: re-launch with more epochs — the
     # group must restore the distributed checkpoint and train only the
-    # remaining epochs (multi-process orbax restore + global re-sharding)
+    # remaining epochs (multi-process restore + global re-sharding)
     port2 = _free_port()
     procs = []
     for pid in (0, 1):

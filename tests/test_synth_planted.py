@@ -77,7 +77,7 @@ def test_planted_head_direction_is_learnable():
 
 def test_planted_transh_recovery():
     """The family-matched generator is recoverable by its family's model
-    (per-model CPU smoke; the TPU-scale anchors live in BASELINE.md)."""
+    (per-model CPU smoke; larger-scale quality anchors live in BASELINE.md)."""
     ds, hidden = planted_kg(n_ent=150, n_rel=4, n_triples=3000, n_valid=80,
                             n_test=120, dim=6, noise=0.0, seed=1,
                             model="transh", with_params=True)

@@ -276,3 +276,69 @@ def test_restore_vocab_mismatch_refused(tmp_path):
     logical_big = {n: s.rows for n, s in model.tables(cfg, 100, 5).items()}
     with pytest.raises(ValueError, match="vocabulary mismatch"):
         mgr.restore(big, step=1, logical_rows=logical_big)
+
+
+def test_checkpoint_npz_layout_and_overwrite(tmp_path):
+    """One state.npz per step_N directory, no temporary directory left
+    behind, a re-save of the same step replaces it, and gc keeps the
+    last ``keep`` steps."""
+    from openkeonspark_tpu.ckpt import CheckpointManager
+    from openkeonspark_tpu.ckpt.checkpoint import all_steps
+    from openkeonspark_tpu.train.step import init_state
+    cfg = Config(model="transe", hidden_size=8, opt_method="adagrad")
+    model = get_model(cfg.model)
+    st = init_state(model, cfg, 30, 4, jax.random.key(1))
+    mgr = CheckpointManager(str(tmp_path / "ck"), keep=2)
+    for s in (1, 2, 3, 3):
+        mgr.save(s, st, extra={"tag": s})
+    names = sorted(os.listdir(tmp_path / "ck"))
+    assert names == ["manifest_2.json", "manifest_3.json", "step_2",
+                     "step_3"], names
+    assert sorted(all_steps(str(tmp_path / "ck"))) == [2, 3]
+    with np.load(tmp_path / "ck" / "step_3" / "state.npz") as z:
+        keys = set(z.files)
+    assert keys == {"step", "params/ent_embeddings", "params/rel_embeddings",
+                    "opt_state/accum/ent_embeddings",
+                    "opt_state/accum/rel_embeddings"}
+    back, manifest = mgr.restore(init_state(model, cfg, 30, 4,
+                                            jax.random.key(5)))
+    assert manifest == {"step": 3, "tag": 3}
+    np.testing.assert_array_equal(np.asarray(back.params["ent_embeddings"]),
+                                  np.asarray(st.params["ent_embeddings"]))
+
+
+@pytest.mark.parametrize("save_pad,load_pad", [(8, 8), (8, 1), (1, 8)])
+def test_checkpoint_sharded_8_devices(tmp_path, save_pad, load_pad):
+    """A state row-sharded over all 8 (virtual) devices saves and
+    restores: into the same sharded layout exactly, and across a
+    grid-padding change into a single-device or sharded template."""
+    from openkeonspark_tpu.ckpt import CheckpointManager
+    from openkeonspark_tpu.parallel import make_mesh, shard_state
+    from openkeonspark_tpu.train.step import init_state
+    cfg = Config(model="transe", hidden_size=8, opt_method="adam")
+    model = get_model(cfg.model)
+    mesh = make_mesh((4, 2))
+
+    def make(pad, key):
+        st = init_state(model, cfg, 61, 5, jax.random.key(key),
+                        pad_to_multiple=pad)
+        return shard_state(st, mesh, flat=True) if pad == 8 else st
+
+    st = make(save_pad, 1)
+    if save_pad == 8:
+        assert len(st.params["ent_embeddings"].sharding.device_set) == 8
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(7, st)
+    tmpl = make(load_pad, 2)
+    logical = {n: s.rows for n, s in model.tables(cfg, 61, 5).items()}
+    back, _ = mgr.restore(tmpl, step=7, logical_rows=logical)
+    assert int(back.step) == int(st.step)
+    for k, v in back.params.items():
+        assert v.shape == tmpl.params[k].shape
+        assert v.sharding == tmpl.params[k].sharding, k
+        np.testing.assert_array_equal(
+            np.asarray(v)[:logical[k]],
+            np.asarray(st.params[k])[:logical[k]], err_msg=k)
+    for mv in ("m", "v"):
+        for k, v in back.opt_state[mv].items():
+            assert v.sharding == tmpl.opt_state[mv][k].sharding

@@ -2,21 +2,16 @@
 
 Measures the full evaluator (both directions, raw+filtered) at the
 BASELINE.md eval shape — d=200, FB15K-237-sized entity set, 20k test
-triples — including the relation-grouped MXU path for TransR/TransH and
-the ``eval_dtype`` knob (VERDICT r2 #9: the r1 numbers predate the
-grouped TransH path and the bf16 projection was silently ignored).
+triples — including the relation-grouped route for TransR/TransH and
+the ``eval_dtype`` knob, on the local GPU (exits non-zero when JAX finds
+no GPU).
 
-**Pinned protocol** (VERDICT r3 next #3 — the r3 table drifted vs r1 with
-no way to tell spread from regression): ``--repeats`` timed runs (default
-5) after one same-shape warm-up; the reported number is the **median**,
-with min/max spread. ``--write-anchor`` stores the medians in
-``bench_eval_anchor.json`` at the repo root; later runs print
-``vs_anchor`` so regressions are visible against a stored measurement,
-exactly like ``bench_baseline_cpu.json`` pins the training baseline.
+Protocol: ``--repeats`` timed runs (default 5) after one same-shape
+warm-up; the reported number is the **median**, with min/max spread.
 
 Usage: python tools/eval_bench.py [--models transe,transh,transr,transd]
                                   [--dtypes float32,bfloat16]
-                                  [--repeats 5] [--write-anchor]
+                                  [--repeats 5]
 Prints one JSON line per (model, dtype).
 """
 
@@ -27,12 +22,8 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 
 import argparse
 import json
-import os
 import statistics
 import time
-
-ANCHOR_PATH = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "bench_eval_anchor.json")
 
 
 def main():
@@ -42,8 +33,6 @@ def main():
     ap.add_argument("--dtypes", default="float32,bfloat16")
     ap.add_argument("--n_test", type=int, default=20000)
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--write-anchor", action="store_true",
-                    help="store the medians as the pinned anchor")
     ap.add_argument("--eval-chunk", type=int, default=None,
                     help="override cfg.eval_chunk (sweep knob)")
     ap.add_argument("--eval-block", type=int, default=None)
@@ -53,6 +42,9 @@ def main():
 
     import jax
 
+    from openkeonspark_tpu.runtime import enable_compile_cache, require_gpu
+    enable_compile_cache()
+    require_gpu()
     from openkeonspark_tpu.config import Config
     from openkeonspark_tpu.data.index import build_kg_index
     from openkeonspark_tpu.data.synth import random_kg
@@ -63,14 +55,6 @@ def main():
     ds = random_kg(n_ent=14541, n_rel=237, n_triples=272115,
                    n_valid=1000, n_test=args.n_test, seed=7)
     idx = build_kg_index(ds, for_eval=True)
-
-    anchor = {}
-    if os.path.exists(ANCHOR_PATH):
-        with open(ANCHOR_PATH) as f:
-            anchor = json.load(f)
-    new_anchor = {"backend": jax.default_backend(),
-                  "n_test": args.n_test, "repeats": args.repeats,
-                  "medians": {}}
 
     for name in args.models.split(","):
         cfg0 = Config(model=name, hidden_size=200)
@@ -101,8 +85,6 @@ def main():
                                       triples=ds.test)
                 rates.append(len(ds.test) / (time.perf_counter() - t0))
             med = statistics.median(rates)
-            key = f"{name}/{dt}"
-            new_anchor["medians"][key] = round(med, 1)
             rec = {
                 "model": name, "eval_dtype": dt,
                 "n_test": int(len(ds.test)), "n_ent": ds.n_ent,
@@ -113,23 +95,7 @@ def main():
                 # wildly smaller value would flag a counting bug
                 "filt_mr": round(res.filt_avg.mr, 1),
             }
-            a = anchor.get("medians", {}).get(key)
-            if a:
-                rec["anchor"] = a
-                rec["vs_anchor"] = round(med / a, 3)
             print(json.dumps(rec), flush=True)
-
-    if args.write_anchor:
-        # MERGE into the stored anchors: writing a subset of models (e.g.
-        # anchoring a newly added family) must not erase the others'
-        # pinned medians — those are the drift baselines
-        merged = dict(anchor) if anchor else {}
-        merged.update({k: v for k, v in new_anchor.items()
-                       if k != "medians"})
-        merged.setdefault("medians", {}).update(new_anchor["medians"])
-        with open(ANCHOR_PATH, "w") as f:
-            json.dump(merged, f, indent=1)
-        print(f"# anchor written to {ANCHOR_PATH}", flush=True)
 
 
 if __name__ == "__main__":

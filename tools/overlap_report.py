@@ -8,7 +8,7 @@ tool pins the two halves of the overlap story that ARE checkable here:
    8-virtual-device CPU mesh, build the def-use graph of the entry
    computation, and count collective pairs with NO path between them.
    Chains that are mutually unreachable are exactly what XLA's
-   latency-hiding scheduler is free to overlap on TPU (it cannot overlap
+   latency-hiding scheduler is free to overlap on an accelerator (it cannot overlap
    data-dependent ops no matter what we wish). CPU lowers collectives
    synchronously (verified: zero ``-start``/``-done`` pairs in the
    compiled module), so the *schedule* itself is not evidence — the

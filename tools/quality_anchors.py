@@ -1,5 +1,5 @@
 """Per-family quality anchors: train each model on its family-matched
-planted KG at TPU scale and record filtered Hits@10 / MRR (VERDICT r2 #4),
+planted KG at accelerator scale and record filtered Hits@10 / MRR,
 **normalized by the generator's own ceiling** (VERDICT r3 next #4).
 
 The real benchmark splits are unfetchable in this sandbox, so the planted
